@@ -1,0 +1,27 @@
+"""Angle / abscissa wrapping (port of ``racing_lmpc_tpu/ops/math.py:17-40``).
+
+Elementwise and shape-polymorphic: every function broadcasts over leading
+batch dimensions, as the reference's does.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+
+def wrap_to_pi(angle: Tensor) -> Tensor:
+    """Wrap an angle to (-pi, pi] via the atan2 identity (branch-free)."""
+    return torch.atan2(torch.sin(angle), torch.cos(angle))
+
+
+def align_abscissa(s1: Tensor, s2: Tensor, s_total: Tensor) -> Tensor:
+    """Shift track abscissa ``s1`` by a multiple of the track length toward ``s2``.
+
+    Mirrors ``lmpc::utils::align_abscissa`` (utils.hpp:36-42): the result is
+    within ``s_total/2`` of ``s2`` and congruent to ``s1`` mod ``s_total``.
+    ``torch.remainder`` is the floored modulo of ``jnp.mod``.
+    """
+    d = torch.abs(s2 - s1) + s_total / 2.0
+    l = d - torch.remainder(d, s_total)
+    return s1 + l * torch.sign(s2 - s1)

@@ -1,0 +1,87 @@
+"""The stored reference runs that ``chip_smoke.py`` holds the port against
+(tests/data/torch_port/<case>.npz, written by tests/torch_port_fixture.py).
+
+The port must build exactly each fixture's scenario batch, so that the
+comparison on the card compares like with like (safe-set points as sets
+where distances tie: the JAX package queries through its native k-NN).  A
+slow test regenerates the fixtures with the JAX package and checks that
+they are unchanged: inputs and certified optima exactly, the reference's
+own outputs to the spread its re-runs on rounding-perturbed inputs show.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from racing_lmpc_torch.benchmarks import build_barc_lmpc, make_scenario_batch
+from racing_lmpc_torch.mpc.racing_mpc import MPCInput
+from tests import torch_port_fixture
+from tests._torch_twin import assert_same_safe_set, np_of
+
+CASES = sorted(torch_port_fixture.CASES)
+# lanes whose float64 optimum certifies (255 of 256 and 122 of 128 stored)
+CERTIFIED_AT_LEAST = {"barc_n20_k48_b256": 250, "barc_n40_k96_b128": 120}
+
+
+def _stored(case):
+    with np.load(torch_port_fixture.fixture_path(case)) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_port_builds_the_fixture_batch(case):
+    stored = _stored(case)
+    n_horizon, num_ss, per_lap, batch = torch_port_fixture.CASES[case]
+    _, track, _, mpc, manager = build_barc_lmpc(n_horizon, num_ss, per_lap, device="cpu")
+    inp = make_scenario_batch(mpc, track, manager, batch,
+                              seed=torch_port_fixture.SEED, device="cpu")
+    for f in MPCInput._fields:
+        if f not in ("ss_x", "ss_j"):
+            assert np.array_equal(np_of(getattr(inp, f)), stored[f"inp_{f}"]), f
+    assert_same_safe_set(np_of(inp.ss_x), np_of(inp.ss_j),
+                         stored["inp_ss_x"], stored["inp_ss_j"])
+    assert np.array_equal(mpc.scale_u, stored["scale_u"])
+    assert stored["U_pert"].shape == (torch_port_fixture.PERT_SEEDS,) + stored["U_optm"].shape
+    assert np.isfinite(stored["obj_star"]).sum() >= CERTIFIED_AT_LEAST[case]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_chip_smoke_gates_read_the_fixture(case, capsys):
+    """chip_smoke.py reads each fixture as written; its gates pass the
+    reference's own runs, and its moved inputs are the fixture's."""
+    import chip_smoke
+    assert chip_smoke.CASES == torch_port_fixture.CASES
+    stored = _stored(case)
+    limits = chip_smoke.gate_limits(stored)
+    assert set(limits) == set(chip_smoke.GATE_FLOORS)
+    assert all(np.isfinite(v) and v >= chip_smoke.GATE_FLOORS[k] for k, v in limits.items())
+    runs = chip_smoke.reference_runs(stored)
+    assert len(runs) == 1 + torch_port_fixture.PERT_SEEDS
+    assert chip_smoke.held_to_reference(runs, stored, limits, case) == []
+    assert "FAILS" not in capsys.readouterr().out
+    inp = MPCInput(*(torch.as_tensor(stored[f"inp_{f}"]) for f in MPCInput._fields))
+    rng = np.random.default_rng(torch_port_fixture.SEED + 1)
+    x_ic = stored["inp_x_ic"] * (1 + 2e-7 * rng.standard_normal(stored["inp_x_ic"].shape))
+    assert np.array_equal(np_of(chip_smoke.moved(inp, 0).x_ic), x_ic.astype(np.float32))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", CASES)
+def test_fixture_regenerates_unchanged(case):
+    stored = _stored(case)
+    fresh = torch_port_fixture.compute(case)
+    assert set(fresh) == set(stored)
+    for k in fresh:
+        if k.startswith("inp_") or k in ("U_star", "obj_star", "scale_u"):
+            np.testing.assert_allclose(fresh[k], stored[k], rtol=1e-9, atol=0, err_msg=k)
+    runs = [(stored["U_optm"], stored["solved"])] + list(
+        zip(stored["U_pert"], stored["solved_pert"]))
+    worst = max(int((a[1] != b[1]).sum()) for i, a in enumerate(runs) for b in runs[i + 1:])
+    for U_new, s_new, U_old, s_old in [
+            (fresh["U_optm"], fresh["solved"], stored["U_optm"], stored["solved"]),
+            *zip(fresh["U_pert"], fresh["solved_pert"], stored["U_pert"],
+                 stored["solved_pert"])]:
+        assert (s_new != s_old).sum() <= worst
+        both = s_new & s_old
+        d = np.abs(U_new - U_old) / stored["scale_u"]
+        assert d[both][..., 0].max() <= 1e-3
