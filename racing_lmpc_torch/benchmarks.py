@@ -32,7 +32,8 @@ def build_barc_lmpc(n_horizon: int = 20, num_ss: int = 48,
     device = resolve_device(device)
     base, st = barc_vehicle()
     model = SingleTrackPlanarModel(base, st)
-    track = RacingTrajectory.from_file(TRACK_DIR / "barc" / "02_barc_center.txt")
+    track = RacingTrajectory.from_file(TRACK_DIR / "barc" / "02_barc_center.txt",
+                                       device=device)
     cfg = barc_mpc_config(
         "barc_lmpc", n=n_horizon, learning=learning,
         num_ss_pts=num_ss, num_ss_pts_per_lap=num_ss_per_lap, **overrides)

@@ -45,10 +45,16 @@ def mpc_input_from_arrays(arrays: Mapping, device=None) -> MPCInput:
     """The port's ``MPCInput`` from a dict of the reference's ``MPCInput``
     fields (numpy arrays; a batch dimension, if any, is kept), on ``device``
     (CUDA unless the caller names one).  Optional fields the reference
-    leaves as ``None`` are dropped; any other field the port does not know
-    raises."""
+    leaves as ``None`` are dropped; its regression corrections dA/dB/dC
+    raise NotImplementedError, and any other field the port does not know
+    raises ValueError."""
     device = resolve_device(device)
     fields = {k: v for k, v in arrays.items() if v is not None}
+    regression = sorted({"dA", "dB", "dC"} & set(fields))
+    if regression:
+        raise NotImplementedError(
+            f"MPCInput {regression}: the safe-set regression corrections are "
+            "not ported yet")
     unknown = set(fields) - set(MPCInput._fields)
     if unknown:
         raise ValueError(f"MPCInput has no fields {sorted(unknown)}")
@@ -57,11 +63,12 @@ def mpc_input_from_arrays(arrays: Mapping, device=None) -> MPCInput:
                        for k in MPCInput._fields})
 
 
-def safe_set_from_laps(laps: Sequence[np.ndarray], total_length: float,
+def safe_set_from_laps(laps: Sequence[tuple], total_length: float,
                        max_laps: int, nx: int = 6) -> SafeSetManager:
-    """A port ``SafeSetManager`` holding the recorded lap states ``laps``
-    (each (T, nx)), added oldest first as the reference adds them."""
+    """A port ``SafeSetManager`` holding the recorded laps ``laps``, each
+    (x, u, k, t) as ``SafeSetManager.add_lap`` takes them, added oldest
+    first as the reference adds them."""
     manager = SafeSetManager(max_laps, nx=nx)
-    for x in laps:
-        manager.add_lap(x, total_length)
+    for x, u, k, t in laps:
+        manager.add_lap(x, u, k, t, total_length)
     return manager

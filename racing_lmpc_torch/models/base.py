@@ -5,8 +5,9 @@ Dynamics are elementwise over leading batch dimensions.  The discrete
 Jacobian that JAX takes with ``jax.jacfwd`` under ``vmap`` is forward mode
 here too: ``torch.func.vmap`` of ``torch.func.jvp`` over the basis tangents,
 each tangent pushed through the whole batch at once.
-The throttle/brake lookup helpers (``base.py:203-277``) are not on the solve
-path and are not ported yet.
+The base state/control conversions the simulator uses are here
+(``base.py:99``, ``:135-145``); the throttle/brake lookup helpers
+(``base.py:203-277``) are not on any ported path and are not ported yet.
 """
 
 from __future__ import annotations
@@ -71,6 +72,8 @@ class VehicleModel:
     # number of rows of the model's nonlinear stage constraints (none on
     # the single-track model; the constraint rows wait for a later slice)
     n_nl: int = 0
+    # base control layout (FD, FB, STEER) the simulator and actuation speak
+    nu_base: int = 3
 
     def dynamics(self, x: Tensor, u: Tensor, k: Tensor) -> Tensor:
         """Continuous dynamics x_dot = f(x, u, k)."""
@@ -110,6 +113,19 @@ class VehicleModel:
         g = (xn - torch.matmul(A, x.unsqueeze(-1))[..., 0]
              - torch.matmul(B, u.unsqueeze(-1))[..., 0])
         return A, B, g
+
+    # base conversions: identities unless a model overrides them
+    def to_base_state(self, x: Tensor, u: Tensor) -> Tensor:
+        return x
+
+    def from_base_state(self, x_base: Tensor, u_base: Tensor) -> Tensor:
+        return x_base
+
+    def to_base_control(self, x: Tensor, u: Tensor) -> Tensor:
+        return u
+
+    def from_base_control(self, x_base: Tensor, u_base: Tensor) -> Tensor:
+        return u_base
 
     def cost_state_indices(self) -> dict:
         """Where contour / heading / velocity / vy / vyaw live in THIS

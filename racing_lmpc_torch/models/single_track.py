@@ -1,7 +1,8 @@
 """Single-track (dynamic bicycle) planar model with simplified Pacejka tyres.
 
-Port of ``racing_lmpc_tpu/models/single_track.py:38-188`` (the dynamics and
-the QP-path constraint data; the actuator maps wait for a later slice).
+Port of ``racing_lmpc_tpu/models/single_track.py:38-188`` (the dynamics,
+the base-control conversions and the QP-path constraint data; the actuator
+maps ``calc_lon_control``/``calc_lat_control`` wait for a later slice).
 
 State  x = (PX, PY, YAW, VX, VY, VYAW)          [Frenet: (s, t, xi, vx, vy, w)]
 Control, full:        u = (FD, FB, STEER)        (nu = 3)
@@ -124,6 +125,22 @@ class SingleTrackPlanarModel(VehicleModel):
 
         return torch.stack([px_dot, py_dot, phi_dot, vx_dot, vy_dot, omega_dot], dim=-1)
 
+    # base conversions (single_track_planar_model.cpp:390-417)
+    def to_base_control(self, x: Tensor, u: Tensor) -> Tensor:
+        if not self.config.simplify_lon_control:
+            return u
+        lon = u[..., SimpleUIndex.LON]
+        return torch.stack([lon * _sigmoid(lon), lon * _sigmoid(-lon),
+                            u[..., SimpleUIndex.STEER]], dim=-1)
+
+    def from_base_control(self, x_base: Tensor, u_base: Tensor) -> Tensor:
+        if not self.config.simplify_lon_control:
+            return u_base
+        fd = u_base[..., BaseUIndex.FD]
+        fb = u_base[..., BaseUIndex.FB]
+        lon = torch.where(torch.abs(fd) > torch.abs(fb), fd, fb)
+        return torch.stack([lon, u_base[..., BaseUIndex.STEER]], dim=-1)
+
     def control_bounds(self) -> BoxBounds:
         """QP-path inequality data of ``add_nlp_constraints``
         (single_track_planar_model.cpp:113-158, `x`/`dui` branches)."""
@@ -141,3 +158,8 @@ class SingleTrackPlanarModel(VehicleModel):
             du_lb = np.array([-np.inf, cfg.fb_max / cfg.tb, -steer_rate])
             du_ub = np.array([cfg.fd_max / cfg.td, np.inf, steer_rate])
         return BoxBounds(u_lb, u_ub, du_lb, du_ub)
+
+
+def _sigmoid(z: Tensor) -> Tensor:
+    """1 / (1 + exp(-z)), the reference's expression (``jax_sigmoid``)."""
+    return 1.0 / (1.0 + torch.exp(-z))

@@ -9,9 +9,12 @@ reference module for the derivation of the condensing (states eliminated
 through the LQR-pre-stabilized chain, controls and rates affine in the
 decision vector) and of every row block.
 
-Not ported yet (the controller slice): ``solve_sqp``, the warm-start
-helpers, the ADMM branch, the nonlinear model-constraint rows (no model of
-this slice has any) and the safe-set regression corrections ``dA/dB/dC``.
+``solve`` (one problem), ``solve_sqp`` (the bootstrap's SQP loop),
+``warm_start_vector`` and ``create_warm_start`` are ported for the
+controller cycle (``:669-773``).  Not ported yet: the ADMM branch, the
+nonlinear model-constraint rows (no model of the port has any) and the
+safe-set regression corrections ``dA/dB/dC``, which no launch scenario
+passes (``carry.mpc_input_from_arrays`` raises on them).
 """
 
 from __future__ import annotations
@@ -487,8 +490,90 @@ class RacingMPC:
         return self._solve_impl(MPCInput(*(
             torch.as_tensor(a, dtype=torch.float32).to(self.device) for a in inp)))
 
-    def solve(self, inp: MPCInput) -> tuple[MPCOutput, Tensor]:
-        """One solve: ``inp`` without the batch dimension."""
+    def solve(self, inp: MPCInput, z_warm: Tensor | None = None
+              ) -> tuple[MPCOutput, Tensor]:
+        """One RTI solve: ``inp`` without the batch dimension.  Returns the
+        output and the warm-start vector for the next call (scaled controls
+        in the leading block, as ``warm_start_vector`` packs them).  The
+        interior point method restarts from the central path, so ``z_warm``
+        is accepted for the reference's signature and not used, as there."""
         one = MPCInput(*(torch.as_tensor(a)[None] for a in inp))
         out, z = self.solve_batch(one)
         return MPCOutput(*(a[0] for a in out)), z[0]
+
+    def _rollout(self, inp: MPCInput, U: Tensor) -> Tensor:
+        """Nonlinear rollout of ``U`` from ``inp.x_ic`` through the model's
+        discrete dynamics at the reference's curvatures and step lengths."""
+        xs = [inp.x_ic]
+        for i in range(self.N - 1):
+            xs.append(self.model.discrete_dynamics(
+                xs[-1], U[i], inp.curvatures[i], inp.T_ref[i]))
+        return torch.stack(xs)
+
+    def solve_sqp(self, inp: MPCInput, iters: int = 5) -> tuple[MPCOutput, Tensor]:
+        """SQP loop in place of the reference node's IPOPT bootstrap
+        (``racing_mpc.py:684-715``): re-linearize at the nonlinear rollout
+        of the current controls and re-solve, damping each control update
+        by alpha = 0.5; the output carries the damped controls and their
+        rollout."""
+        inp = MPCInput(*(torch.as_tensor(a, dtype=torch.float32).to(self.device)
+                         for a in inp))
+        out, z = self.solve(inp)
+        U = out.U_optm
+        for _ in range(iters - 1):
+            inp = inp._replace(X_ref=self._rollout(inp, U), U_ref=U)
+            out, z = self.solve(inp, z)
+            U = U + 0.5 * (out.U_optm - U)
+        return out._replace(U_optm=U, X_optm=self._rollout(inp, U)), z
+
+    def warm_start_vector(self, X: Tensor, U: Tensor, dU: Tensor,
+                          lam: Tensor | None = None) -> Tensor:
+        """Pack (unscaled) trajectories into the condensed decision vector
+        (``racing_mpc.py:718-733``): scaled controls, and the convex
+        combination (uniform when none of the safe set's size is given).
+        X and dU are implied by U in the condensed form."""
+        L = self.layout
+        z = U.new_zeros((L.n,))
+        z[:L.nuu] = (U / self._c["su"].to(U)).flatten()
+        if self.config.learning:
+            lam_blk = slice(L.lam_off, L.lam_off + self.K)
+            if lam is not None and lam.shape[0] == self.K:
+                z[lam_blk] = lam
+            else:
+                z[lam_blk] = 1.0 / self.K
+        return z
+
+    def create_warm_start(self, P0, Yaws, Radii, current_vel: float,
+                          target_vel: float) -> tuple[Tensor, Tensor, Tensor]:
+        """Physics-based initial reference (``racing_mpc.py:735-773``,
+        racing_mpc.cpp:374-430): linspace speeds, F = m a forces,
+        pure-pursuit steering.  Returns (X_ref, U_ref, T_ref) in the
+        model's control layout, f32 on this MPC's device."""
+        N, nx, nu = self.N, self.nx, self.nu
+        if not current_vel > 0.0:
+            raise ValueError(f"current_vel must be positive, got {current_vel}")
+        if not target_vel > 0.0:
+            raise ValueError(f"target_vel must be positive, got {target_vel}")
+        P0, Radii = np.asarray(P0), np.asarray(Radii)
+        m_total = self.model.base_config.chassis.total_mass
+        wheel_base = self.model.base_config.chassis.wheel_base
+        X_ref = np.zeros((N, nx))
+        X_ref[:, 0:2] = P0
+        X_ref[:, 2] = np.asarray(Yaws)
+        vels = np.linspace(current_vel, target_vel, N)
+        X_ref[:, self.idx_vel] = vels
+        if self.idx_vyaw is not None:
+            X_ref[:, self.idx_vyaw] = vels / Radii
+        U_ref = np.zeros((N - 1, nu))
+        T_ref = np.zeros(N - 1)
+        for i in range(N - 1):
+            d = float(np.hypot(*(P0[i] - P0[i + 1])))
+            if not d > 0.0:
+                raise ValueError(f"coincident warm-start waypoints at {i}")
+            fo = m_total * (vels[i + 1] ** 2 - vels[i] ** 2) / (2 * d)
+            steer = float(np.arctan(wheel_base / Radii[i]))
+            U_ref[i] = ([fo / 1000.0, steer] if nu == 2
+                        else [max(fo, 0.0), min(fo, 0.0), steer])
+            T_ref[i] = d / vels[i]
+        return tuple(torch.as_tensor(a, dtype=torch.float32, device=self.device)
+                     for a in (X_ref, U_ref, T_ref))

@@ -1,11 +1,12 @@
-"""Build and load the port's hand-written CUDA kernel.
+"""Build and load the port's hand-written CUDA kernels.
 
-The kernel is ``csrc/<name>.cu`` with a plain C entry point, compiled by
+Each kernel is ``csrc/<name>.cu`` with a plain C entry point, compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``build/`` at
 the repository root and bound with ``ctypes`` — no PyTorch headers, so a
 build takes seconds.  The library's file name carries a hash of the source
-and the flags, so an edited source is rebuilt on first use.  Nothing is
-built or loaded when this module is imported: only a CUDA launch asks for a
+and the flags, so an edited source is rebuilt on first use.  ``build``
+starts one ``nvcc`` per source that needs it, all at once.  Nothing is built
+or loaded when this module is imported: only a CUDA launch asks for a
 library.
 """
 
@@ -20,10 +21,15 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-# no --use_fast_math: the kernel keeps IEEE division and sqrt, so a
-# non-positive Cholesky pivot gives NaN exactly as the plain version does
+# no --use_fast_math: the kernels keep IEEE division and sqrt, so a zero or
+# non-positive pivot gives inf/NaN exactly as the plain versions do
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def names() -> list[str]:
+    """Every kernel source of the port."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
 def _paths(name: str) -> tuple[Path, Path]:
@@ -41,23 +47,31 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build(name: str) -> str:
-    """Compile kernel ``name`` if its library is missing or stale.  Returns
-    the compiler output (``ptxas`` register and shared-memory report; empty
-    when nothing was built); raises with that output if nvcc fails."""
-    src, lib = _paths(name)
-    if lib.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
-                           f"{proc.returncode}\n{log}")
-    os.replace(tmp, lib)
-    return log
+def build(*kernels: str) -> dict[str, str]:
+    """Compile the named kernels (all of them when none is named) whose
+    library is missing or stale, one ``nvcc`` each, run side by side.
+    Returns each built kernel's compiler output (the ``ptxas`` register and
+    shared-memory report); raises with that output if an nvcc fails."""
+    jobs = {}
+    for name in kernels or names():
+        src, lib = _paths(name)
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        jobs[name] = (tmp, lib, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for name, (tmp, lib, proc) in jobs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{logs[name]}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return logs
 
 
 @functools.cache

@@ -10,7 +10,12 @@ Port of ``racing_lmpc_tpu/ops/pallas_linalg.py``:
   ``csrc/chol_tri_inv.cu`` that replaces the TPU kernel
   ``chol_tri_inv_fused`` (``:312-368``).  On a CPU tensor it runs the plain
   version ``tri_inv_lower(chol_lower(H))``; on a CUDA tensor it launches the
-  kernel or raises.  See the kernel source for what bounds it.
+  kernel or raises.  See the kernel source for what bounds it;
+- ``gj_inverse``, the wrapper of ``csrc/gj_inverse.cu``, which replaces the
+  TPU kernel ``gj_inverse`` (``:98-136``): a batched Gauss-Jordan inverse
+  with swap-free partial pivoting, and its plain version
+  ``gj_inverse_plain``.  Like the reference, nothing on a solve path calls
+  it.
 
 No library factorization (``torch.linalg``) is called here.
 """
@@ -207,6 +212,103 @@ def chol_tri_inv(H: Tensor) -> Tensor:
 
 
 chol_tri_inv.launches = 0
+
+
+def _gj_eliminate(A: Tensor) -> tuple[Tensor, Tensor]:
+    """Swap-free pivoted Gauss-Jordan on a batch (G, b, b), step for step as
+    the reference's ``_gj_body`` (``pallas_linalg.py:41-75``).  Returns the
+    eliminated augmented matrix (G, b, 2b), whose left half is a permutation
+    matrix, and the row that pivoted at each step (G, b)."""
+    G, b, _ = A.shape
+    eye = torch.eye(b, dtype=A.dtype, device=A.device).expand(G, b, b)
+    MI = torch.cat([A, eye], dim=-1)
+    rows = torch.arange(b, device=A.device)
+    used = torch.zeros((G, b), dtype=A.dtype, device=A.device)
+    pivots = []
+    for k in range(b):
+        col = MI[:, :, k]
+        score = col.abs() - used * 1e30
+        # the first maximal index (NaN counts as the largest), as
+        # jnp.argmax picks it: ties go to the lowest row
+        p = torch.argmax(score, dim=-1)
+        d = col.gather(1, p[:, None])
+        prow = MI.gather(1, p[:, None, None].expand(G, 1, 2 * b))[:, 0] / d
+        oh = rows == p[:, None]
+        f = torch.where(oh, 0.0, col)
+        MI = torch.where(oh[..., None], prow[:, None, :],
+                         MI - f[..., None] * prow[:, None, :])
+        used = used + oh
+        pivots.append(p)
+    return MI, torch.stack(pivots, dim=-1)
+
+
+def gj_inverse_plain(A: Tensor, return_pivots: bool = False):
+    """The plain PyTorch version of the kernel: ``A^-1`` of (..., b, b) by
+    the reference's swap-free pivoted Gauss-Jordan (and, if asked, the row
+    that pivoted at each step, (..., b) int64)."""
+    b = A.shape[-1]
+    MI, piv = _gj_eliminate(A.reshape(-1, b, b))
+    # A^-1 = P^T (right half): row k is the right half of the row that
+    # pivoted at step k (the reference's product with the one-hot P, exact)
+    inv = MI[:, :, b:].gather(1, piv[..., None].expand(-1, b, b)).reshape(A.shape)
+    return (inv, piv.reshape(A.shape[:-1])) if return_pivots else inv
+
+
+@functools.cache
+def _gj_kernel_fn():
+    fn = _kernels.load("gj_inverse").gj_inverse_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+GJ_MAX_B = 64
+
+
+def gj_inverse(A: Tensor, return_pivots: bool = False):
+    """Batched inverse (..., b, b) -> (..., b, b) by Gauss-Jordan with
+    partial pivoting and no row swaps, as the reference's ``gj_inverse``
+    (``racing_lmpc_tpu/ops/pallas_linalg.py:98-136``).  With
+    ``return_pivots`` it also returns the row that pivoted at each step
+    (..., b), int64.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    hand-written kernel (``csrc/gj_inverse.cu``, b <= 64) or raises — there
+    is no fall back.  A zero pivot gives inf or NaN in that matrix only.
+    ``gj_inverse.launches`` counts the kernel launches.  On an H100 the
+    function must move 8 b^2 bytes and do 2 b^3 flops per matrix, so bytes
+    bound it; see the kernel source for what sets its time.
+    """
+    if A.dtype != torch.float32:
+        raise TypeError(f"gj_inverse takes float32, got {A.dtype}")
+    if A.dim() < 2 or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"gj_inverse takes (..., b, b), got {tuple(A.shape)}")
+    if not A.is_contiguous():
+        raise ValueError("gj_inverse takes a contiguous tensor")
+    if A.device.type == "cpu":
+        return gj_inverse_plain(A, return_pivots)
+    if A.device.type != "cuda":
+        raise ValueError(f"gj_inverse runs on cpu or cuda, not {A.device}")
+    b = A.shape[-1]
+    if b > GJ_MAX_B:
+        raise ValueError(f"gj_inverse: the kernel takes b <= {GJ_MAX_B}, got {b}")
+    G = A.numel() // (b * b) if b else 0
+    inv = torch.empty_like(A)
+    piv = torch.empty(A.shape[:-1], dtype=torch.int32, device=A.device)
+    if G:
+        with torch.cuda.device(A.device):
+            err = _gj_kernel_fn()(
+                A.data_ptr(), inv.data_ptr(),
+                piv.data_ptr() if return_pivots else None, G, b,
+                torch.cuda.current_stream(A.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"gj_inverse kernel launch failed: CUDA error {err}")
+        gj_inverse.launches += 1
+    return (inv, piv.long()) if return_pivots else inv
+
+
+gj_inverse.launches = 0
 
 
 def inv_small(M: Tensor) -> Tensor:

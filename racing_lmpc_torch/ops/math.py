@@ -1,4 +1,5 @@
-"""Angle / abscissa wrapping (port of ``racing_lmpc_tpu/ops/math.py:17-40``).
+"""Angle / abscissa wrapping and the lateral-side test (port of
+``racing_lmpc_tpu/ops/math.py:17-52``).
 
 Elementwise and shape-polymorphic: every function broadcasts over leading
 batch dimensions, as the reference's does.
@@ -25,3 +26,19 @@ def align_abscissa(s1: Tensor, s2: Tensor, s_total: Tensor) -> Tensor:
     d = torch.abs(s2 - s1) + s_total / 2.0
     l = d - torch.remainder(d, s_total)
     return s1 + l * torch.sign(s2 - s1)
+
+
+def align_yaw(yaw_1: Tensor, yaw_2: Tensor) -> Tensor:
+    """Shift ``yaw_1`` by a multiple of 2*pi to the representative nearest
+    ``yaw_2`` (``lmpc::utils::align_yaw``, utils.hpp:25-31)."""
+    return wrap_to_pi(yaw_1 - yaw_2) + yaw_2
+
+
+def lateral_sign(position: Tensor, pose: Tensor) -> Tensor:
+    """Sign (+1 left / -1 right) of ``position`` (..., 2) relative to a pose
+    (x, y, yaw) (..., 3): the cross-product test of
+    ``lmpc::utils::lateral_sign`` (utils.hpp:72-80)."""
+    yaw = pose[..., 2]
+    return torch.sign(
+        torch.cos(yaw) * (position[..., 1] - pose[..., 1])
+        - torch.sin(yaw) * (position[..., 0] - pose[..., 0]))

@@ -2,14 +2,15 @@
 
 Port of the numpy path of ``racing_lmpc_tpu/safeset/safe_set.py``
 (``SafeSetManager.add_lap``/``query``/``query_padded``, ``:75-209``, and
-``SafeSetRecorder.load``, ``:321-333``).  The reference's native C++ k-NN is
+``SafeSetRecorder``, ``:301-369``).  The reference's native C++ k-NN is
 not bound here; the query is the reference's numpy fallback.  The
-error-dynamics regression waits for a later slice.
+error-dynamics regression (``query_regression``) waits for a later slice.
 
 Replicated semantics (safe_set.cpp): cost-to-go J = [T-1 .. 0],
 abscissa-tripled states (x - L, x, x + L) with J offsets for periodic
 matching across start/finish; per-lap k nearest in the (s, t) plane, newest
-laps first, concatenated then truncated to the total budget.
+laps first, concatenated then truncated to the total budget; the recorder
+closes a lap when the abscissa wraps (drops by more than half the track).
 """
 
 from __future__ import annotations
@@ -50,11 +51,17 @@ class SafeSetManager:
         self._order: list[int] = []
 
     # ------------------------------------------------------------------
-    def add_lap(self, x: np.ndarray, total_length: float):
-        """Store one lap of states (x: (T, nx) rows = steps).  Mirrors
-        ``SSTrajectory::process_lap_data`` (safe_set.cpp:116-137)."""
+    def add_lap(self, x: np.ndarray, u: np.ndarray, k: np.ndarray,
+                t: np.ndarray, total_length: float):
+        """Store one lap (x: (T, nx) rows = steps; u, k, t its controls,
+        curvatures and times).  Mirrors ``SSTrajectory::process_lap_data``
+        (safe_set.cpp:116-137).  The query reads the states only; u, k and t
+        feed the regression, which is not ported yet."""
         x = np.asarray(x, dtype=np.float32)
         T = x.shape[0]
+        for name, a in (("u", u), ("k", k), ("t", t)):
+            if len(a) != T:
+                raise ValueError(f"lap {name} has {len(a)} rows for {T} states")
         if T > self.pad:
             raise ValueError(f"lap of {T} steps exceeds pad length {self.pad}")
         J = np.linspace(T - 1, 0, T, dtype=np.float32)
@@ -125,16 +132,60 @@ class SafeSetManager:
 
 
 class SafeSetRecorder:
-    """Loads recorded laps into a manager (the ``load`` part of the
-    reference's ``SafeSetRecorder``, safe_set.cpp:247-322)."""
+    """Accumulates the driven trajectory, detects lap completion by abscissa
+    wrap, commits laps to the manager and optionally checkpoints them in the
+    reference's ``<prefix>lap_N_{x,u,k,t}.txt`` format.  Mirrors
+    ``SafeSetRecorder`` (safe_set.cpp:247-322)."""
 
-    def __init__(self, manager: SafeSetManager):
+    def __init__(self, manager: SafeSetManager, to_file: bool = False,
+                 file_prefix: str = ""):
         self.manager = manager
+        self.to_file = to_file
+        self.file_prefix = file_prefix
+        self.initialized = False
         self.lap_count = 0
+        self._xs: list[np.ndarray] = []
+        self._us: list[np.ndarray] = []
+        self._ks: list[float] = []
+        self._ts: list[float] = []
+        self.lap_times: list[float] = []
 
     def load(self, from_files: Sequence[str | Path], total_length: float):
-        """Load recorded laps (the states of ``<prefix>_x.txt``),
-        safe_set.cpp:260-276."""
+        """Load recorded laps (``<prefix>_{x,u,k,t}.txt``),
+        safe_set.cpp:260-276.  A lap whose files cannot be read is reported
+        and skipped, as the reference does."""
         for prefix in from_files:
-            self.manager.add_lap(np.loadtxt(f"{prefix}_x.txt"), total_length)
+            try:
+                x = np.loadtxt(f"{prefix}_x.txt")
+                u = np.loadtxt(f"{prefix}_u.txt")
+                k = np.loadtxt(f"{prefix}_k.txt")
+                t = np.loadtxt(f"{prefix}_t.txt")
+            except OSError as e:
+                print(f"Failed to load lap from {prefix}: {e}")
+                continue
+            self.manager.add_lap(x, u, k, t, total_length)
             self.lap_count += 1
+
+    def step(self, x, u, k, t, total_length: float):
+        """Record one control step (safe_set.cpp:278-322); the first wrap
+        only starts the first full lap."""
+        x = np.asarray(x, dtype=np.float64).reshape(-1)
+        u = np.asarray(u, dtype=np.float64).reshape(-1)
+        if self._xs and float(self._xs[-1][0]) - float(x[0]) > 0.5 * total_length:
+            if self.initialized:
+                self.lap_times.append(float(t) - self._ts[0])
+                xs, us = np.stack(self._xs), np.stack(self._us)
+                ks, ts = np.asarray(self._ks), np.asarray(self._ts)
+                self.manager.add_lap(xs, us, ks, ts, total_length)
+                if self.to_file:
+                    prefix = f"{self.file_prefix}lap_{self.lap_count}"
+                    for name, a in (("x", xs), ("u", us), ("t", ts), ("k", ks)):
+                        np.savetxt(f"{prefix}_{name}.txt", a)
+            else:
+                self.initialized = True
+            self.lap_count += 1
+            self._xs, self._us, self._ks, self._ts = [], [], [], []
+        self._xs.append(x)
+        self._us.append(u)
+        self._ks.append(float(k))
+        self._ts.append(float(t))

@@ -1,5 +1,6 @@
-"""Frenet-frame track model of the port (host part)."""
+"""Frenet-frame track model of the port and the raceline map."""
 
 from racing_lmpc_torch.track.trajectory import RacingTrajectory, TrajectoryIndex
+from racing_lmpc_torch.track.trajectory_map import RacingTrajectoryMap
 
-__all__ = ["RacingTrajectory", "TrajectoryIndex"]
+__all__ = ["RacingTrajectory", "RacingTrajectoryMap", "TrajectoryIndex"]

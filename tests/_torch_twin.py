@@ -238,3 +238,23 @@ def replay_instance(rec, d, replicas: int, gates: dict):
     gap = float(np.median(gaps))
     assert gap < gates["obj_gap_gate"], \
         f"{tag}: objective gap median {gap:.3e} > {gates['obj_gap_gate']:.3e}"
+
+
+# ---------------------------------------------------------------------------
+# the controller cycle against stored reference runs (tests/data/torch_port/
+# ctrl_*.npz, written by tests/torch_port_fixture.py)
+# ---------------------------------------------------------------------------
+
+def controller_case(case: str) -> tuple[dict, dict]:
+    """The port's controller fed the first stored reference run of ``case``
+    (teacher forcing, on the CPU), read against that run with
+    ``chip_smoke.py``'s controller gates.  Returns (reading, limits)."""
+    import chip_smoke
+    from tests import torch_port_fixture as tf
+    scenario, steps, moved, kw = tf.CTRL_CASES[case]
+    with np.load(tf.fixture_path(case)) as z:
+        fx = {k: z[k] for k in z.files}
+    assert fx["x_ctrl"].shape[:2] == (moved + 1, steps)
+    port = chip_smoke.teacher_forced(scenario, fx, 0, "cpu", **kw)
+    reading = chip_smoke.ctrl_reading(port, chip_smoke.ctrl_runs(fx)[0], fx["scale_u"])
+    return reading, chip_smoke.ctrl_limits(fx)

@@ -1,6 +1,6 @@
-"""Port tests that need an NVIDIA GPU: the hand-written kernel against its
-plain version, and the batched solve on the card against the same solve on
-the CPU.  They skip where ``torch.cuda.is_available()`` is false.  This file
+"""Port tests that need an NVIDIA GPU: the hand-written kernels against
+their plain versions, and the batched solve on the card against the same
+solve on the CPU.  They skip where ``torch.cuda.is_available()`` is false.  This file
 imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -69,3 +69,43 @@ def test_solve_batch_on_card_matches_cpu(cuda):
     assert (np.abs(np_of(gpu.U_optm) - np_of(cpu.U_optm))[..., 0] / su[0]).max() < 1e-3
     o_c, o_g = np_of(cpu.obj).astype(np.float64), np_of(gpu.obj).astype(np.float64)
     assert (np.abs(o_g - o_c) / np.maximum(np.abs(o_c), 1.0)).max() < 1e-3
+
+
+def tie_batch(rng):
+    """Sylvester-Hadamard matrices (rows permuted, signs flipped, columns
+    scaled by powers of two): every pivot is a tie, and the elimination is
+    exact in f32."""
+    out = []
+    H = np.array([[1.0]])
+    while H.shape[0] < 16:
+        H = np.block([[H, H], [H, -H]])
+    for _ in range(8):
+        M = H[rng.permutation(16)] * rng.choice([-1.0, 1.0], size=(16, 1))
+        out.append(M * 2.0 ** rng.integers(-3, 4, size=(1, 16)))
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("b", [3, 16, 32, 64])
+def test_gj_inverse_kernel_matches_plain(cuda, b):
+    rng = np.random.default_rng(b)
+    A = torch.as_tensor((rng.normal(size=(40, b, b)) + 2 * np.sqrt(b) * np.eye(b))
+                        .astype(np.float32), device=cuda)
+    before = tl.gj_inverse.launches
+    K, pk = tl.gj_inverse(A, return_pivots=True)
+    P, pp = tl.gj_inverse_plain(A, return_pivots=True)
+    torch.cuda.synchronize()
+    assert tl.gj_inverse.launches == before + 1
+    assert torch.equal(pk, pp)
+    assert rel_err(np_of(K), np_of(P)) < 1e-5
+
+
+def test_gj_inverse_kernel_ties_and_limits(cuda):
+    A = torch.as_tensor(tie_batch(np.random.default_rng(0)), device=cuda)
+    K, pk = tl.gj_inverse(A, return_pivots=True)
+    P, pp = tl.gj_inverse_plain(A, return_pivots=True)
+    assert torch.equal(pk, pp) and (pk[:, 0] == 0).all()
+    assert torch.equal(K, P)
+    with pytest.raises(ValueError):
+        tl.gj_inverse(torch.zeros(1, 65, 65, device=cuda))
+    with pytest.raises(TypeError):
+        tl.gj_inverse(torch.zeros(1, 8, 8, device=cuda, dtype=torch.float64))

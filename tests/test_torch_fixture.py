@@ -85,3 +85,46 @@ def test_fixture_regenerates_unchanged(case):
         both = s_new & s_old
         d = np.abs(U_new - U_old) / stored["scale_u"]
         assert d[both][..., 0].max() <= 1e-3
+
+
+CTRL = sorted(torch_port_fixture.CTRL_CASES)
+
+
+@pytest.mark.parametrize("case", CTRL)
+def test_controller_fixture_reads_as_chip_smoke_reads_it(case):
+    """Each stored controller run has the shapes its case names, the
+    reference's runs pass the controller gates among themselves, and
+    chip_smoke.py drives the shipped-width cases for as many cycles as
+    stored."""
+    import chip_smoke
+    scenario, steps, moved, kw = torch_port_fixture.CTRL_CASES[case]
+    stored = _stored(case)
+    runs, nu = moved + 1, len(stored["scale_u"])
+    assert stored["x_ctrl"].shape == (runs, steps, 6)
+    assert stored["u_apply"].shape == stored["u_ic"].shape == (runs, steps, nu)
+    assert np.isfinite(stored["u_apply"]).all() and np.isfinite(stored["obj"]).all()
+    # the controller's previous control is the one it applied a cycle before
+    assert np.array_equal(stored["u_ic"][:, 1:], stored["u_apply"][:, :-1])
+    limits = chip_smoke.ctrl_limits(stored)
+    assert set(limits) == set(chip_smoke.CTRL_FLOORS)
+    ref = chip_smoke.ctrl_runs(stored)
+    for a in ref:
+        assert all(v <= limits[k] for k, v in chip_smoke.ctrl_reading(a, ref[0], stored["scale_u"]).items())
+    if not kw:
+        assert chip_smoke.CTRL_CASES[case] == (scenario, steps)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", CTRL)
+def test_controller_fixture_regenerates_within_its_spread(case):
+    """The reference's runs regenerate: the first cycle's inputs exactly,
+    the rest of each run within the spread its runs show among
+    themselves."""
+    import chip_smoke
+    stored = _stored(case)
+    fresh = torch_port_fixture.compute_ctrl(case)
+    assert set(fresh) == set(stored)
+    assert np.array_equal(fresh["x_ctrl"][:, 0], stored["x_ctrl"][:, 0])
+    limits = chip_smoke.ctrl_limits(stored)
+    for a, b in zip(chip_smoke.ctrl_runs(fresh), chip_smoke.ctrl_runs(stored)):
+        assert all(v <= limits[k] for k, v in chip_smoke.ctrl_reading(a, b, stored["scale_u"]).items())

@@ -12,15 +12,23 @@ by ~2e-7 relative (about one f32 rounding) from its own seed: the largest
 spread between those runs and the first is the reference's own
 repeatability, the yardstick for the port's differences from it.
 
+The controller cycle is held the same way: each ``ctrl_*.npz`` of
+``CTRL_CASES`` holds closed-loop runs of the reference's ``CoSimulation`` of
+a launch scenario, the run itself and re-runs in which every state the
+controller receives is moved by ~2e-7 relative from its own seed (see
+``reference_ctrl_run``).
+
 Run from the repository root:
 
-    JAX_PLATFORMS=cpu python tests/torch_port_fixture.py
+    JAX_PLATFORMS=cpu python tests/torch_port_fixture.py [case ...]
 
-It writes one ``tests/data/torch_port/<case>.npz`` for each of ``CASES``.
+It writes ``tests/data/torch_port/<case>.npz`` for each case named (each of
+``CASES`` and ``CTRL_CASES`` when none is).
 """
 
 from __future__ import annotations
 
+import copy
 import sys
 from pathlib import Path
 
@@ -36,10 +44,97 @@ CASES = {
 }
 SEED = 0
 PERT_SEEDS = 8
+# controller case -> (launch scenario, closed-loop cycles (the first one
+# bootstraps), moved re-runs, CoSimulation arguments): the shipped widths
+# that chip_smoke.py drives, and a cut of each that the CPU tests replay
+SMALL = {"n_override": 10, "mpc_overrides": {"num_ss_pts": 16}}
+CTRL_CASES = {
+    "ctrl_barc_lmpc": ("barc_lmpc", 20, 4, {}),
+    "ctrl_putnam_short_lmpc": ("putnam_short_lmpc", 8, 4, {}),
+    "ctrl_barc_lmpc_n10": ("barc_lmpc", 3, 8, SMALL),
+    "ctrl_putnam_short_lmpc_n10": ("putnam_short_lmpc", 3, 8, SMALL),
+}
 
 
 def fixture_path(case: str) -> Path:
     return FIXTURE_DIR / f"{case}.npz"
+
+
+def _jax_on_cpu():
+    """JAX on the CPU, with the persistent compilation cache of the test
+    suite (tests/conftest.py): each controller run builds its own jitted
+    functions, and the cache compiles each program once."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    import platform
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    if not jax.config.jax_compilation_cache_dir:
+        jax.config.update("jax_compilation_cache_dir", str(
+            ROOT / ".jax_cache" / f"fixture-{platform.machine()}"))
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+
+def reference_ctrl_run(scenario: str, steps: int, move_seed: int | None = None,
+                       **cosim_kw) -> dict:
+    """``steps`` lock-step cycles of the reference's ``CoSimulation`` of a
+    launch scenario (``cosim_kw`` goes to its constructor).  With
+    ``move_seed``, every state the controller receives is scaled by
+    1 + 2e-7 N(0, 1) (numpy seed ``move_seed``) before it is rounded to f32:
+    about one f32 rounding.  Returns, per cycle: the controller's input
+    ``x_ctrl`` (f32, as it was handed to ``MPCController.step``) and
+    ``u_ic``, its ``u_apply``, ``obj`` and ``used_fallback``, and the plant's
+    abscissa ``s``, lateral offset ``x_tran`` and ``lap`` after the cycle."""
+    _jax_on_cpu()
+    from racing_lmpc_tpu.launch.runner import _SCENARIOS, CoSimulation
+
+    cs = CoSimulation(_SCENARIOS[scenario], **cosim_kw)
+    seen = []
+    step = cs.controller.step
+
+    def recording_step(x_ic, u_ic=None):
+        seen.append((np.asarray(x_ic, np.float32), np.asarray(u_ic, np.float32)))
+        return step(x_ic, u_ic)
+
+    cs.controller.step = recording_step
+    if move_seed is not None:
+        rng = np.random.default_rng(move_seed)
+
+        def move(msg):
+            msg = copy.deepcopy(msg)
+            for part, name in (("p", "s"), ("p", "x_tran"), ("p", "e_psi"),
+                               ("v", "v_long"), ("v", "v_tran"), ("w", "w_psi")):
+                obj = getattr(msg, part)
+                setattr(obj, name, getattr(obj, name) * (1 + 2e-7 * rng.standard_normal()))
+            return msg
+        cs.state_filter = move
+    plant = []
+    for _ in range(steps):
+        act = cs.controller_cycle(cs.vehicle_state_msg())
+        msg = cs.plant_cycle(act)
+        plant.append((msg.p.s, msg.p.x_tran, cs.lap_num))
+    tel = cs.telemetry
+    s, x_tran, lap = (np.asarray(v) for v in zip(*plant))
+    return {"x_ctrl": np.stack([x for x, _ in seen]),
+            "u_ic": np.stack([u for _, u in seen]),
+            "u_apply": np.asarray([t.control for t in tel], np.float32),
+            "obj": np.asarray([t.cost for t in tel], np.float32),
+            "used_fallback": np.asarray([not t.solved for t in tel]),
+            "s": s, "x_tran": x_tran, "lap": lap,
+            "total_length": np.float64(cs.track.total_length),
+            "scale_u": np.asarray(cs.controller.mpc.scale_u)}
+
+
+def compute_ctrl(case: str) -> dict:
+    """A controller fixture: the reference run and its moved re-runs (seeds
+    1, 2, ...) stacked on a leading run axis."""
+    scenario, steps, moved, kw = CTRL_CASES[case]
+    runs = [reference_ctrl_run(scenario, steps, move_seed=s or None, **kw)
+            for s in range(moved + 1)]
+    out = {k: np.stack([r[k] for r in runs]) for k in runs[0]
+           if k not in ("total_length", "scale_u")}
+    out.update(total_length=runs[0]["total_length"], scale_u=runs[0]["scale_u"])
+    return out
 
 
 def compute(case: str) -> dict:
@@ -48,11 +143,9 @@ def compute(case: str) -> dict:
     outputs of each perturbed run stacked on a leading axis (``U_pert``,
     ``obj_pert``, ``solved_pert``), and the certified ``U_star`` /
     ``obj_star`` of each lane's condensed QP."""
-    if str(ROOT) not in sys.path:
-        sys.path.insert(0, str(ROOT))
+    _jax_on_cpu()
     import jax
     import jax.numpy as jnp
-    jax.config.update("jax_platforms", "cpu")
     from racing_lmpc_tpu.benchmarks import build_barc_lmpc, make_scenario_batch
     from racing_lmpc_tpu.mpc.reference_qp import ReferenceQP, solve_dense_qp_f64
 
@@ -108,9 +201,10 @@ def compute(case: str) -> dict:
 
 def main() -> None:
     FIXTURE_DIR.mkdir(parents=True, exist_ok=True)
-    for case in CASES:
+    for case in sys.argv[1:] or [*CASES, *CTRL_CASES]:
         path = fixture_path(case)
-        np.savez_compressed(path, **compute(case))
+        arrays = compute_ctrl(case) if case in CTRL_CASES else compute(case)
+        np.savez_compressed(path, **arrays)
         print(f"wrote {path.relative_to(ROOT)}", flush=True)
 
 
