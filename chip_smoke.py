@@ -9,11 +9,15 @@
    side.
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
    at the paths' shapes and at the other shipped sizes; ``chol_tri_inv``
-   also on a wide-spectrum case and a batch with one indefinite lane (NaN
-   there only), ``gj_inverse`` on a pivoting case, exact |pivot| ties (the
-   same pivots as the plain version) and a singular lane, and its raise
-   above b=64.  Times kernel, plain version and a library yardstick with
-   CUDA events, synchronizing after every repetition.
+   also bit for bit against its step mirror ``chol_tri_inv_sweep``, on a
+   wide-spectrum case and a batch with one indefinite lane (NaN there
+   only), and its raise above n=240; ``gj_inverse`` on a pivoting case,
+   exact |pivot| ties (the same pivots as the plain version) and a singular
+   lane, and its raise above b=64.  Times kernel, plain version and a
+   library yardstick with CUDA events, synchronizing after every
+   repetition, and the kernel's and the yardstick's device time under the
+   profiler; ``chol_tri_inv`` also beside the one-SM floor of a batch-1
+   chain.
 3. Batched paths: the flagship batched LMPC solve (N=20, K=48, batch 256),
    then the shipped configuration (N=40, K=96, batch 128), each held against
    stored runs of the JAX reference (``tests/data/torch_port/<case>.npz``,
@@ -61,14 +65,14 @@ CASES = {"barc_n20_k48_b256": (20, 48, 16, 256),
 # tests/torch_port_fixture.py wrote it (the first cycle bootstraps)
 CTRL_CASES = {"ctrl_barc_lmpc": ("barc_lmpc", 20),
               "ctrl_putnam_short_lmpc": ("putnam_short_lmpc", 8)}
-# stored reference runs the port is teacher-forced on (the run itself and
-# the first moved re-runs): a Putnam cycle makes about three solves at
-# n=216, about 2 s each on the card, so it replays three of its five
-CTRL_REPLAYS = {"ctrl_barc_lmpc": 5, "ctrl_putnam_short_lmpc": 3}
+# stored reference runs the port is teacher-forced on: the run itself and
+# its four moved re-runs, all five on both paths
+CTRL_REPLAYS = {"ctrl_barc_lmpc": 5, "ctrl_putnam_short_lmpc": 5}
 
 # H100 SXM published peaks (NVIDIA data sheet) for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12          # f32 outside the tensor cores
+SM_COUNT = 132                  # for the one-SM floor of a batch-1 chain
 
 
 def check(cond: bool, what: str) -> None:
@@ -95,6 +99,31 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn`` in ms: the CUDA kernels' time under
+    the profiler, summed over ``reps`` calls and divided by ``reps`` (the
+    host's launch overhead, which ``cuda_time_ms`` includes, left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+
+
+def same_bits(a, b) -> bool:
+    """NaN in the same places, every other entry bit for bit."""
+    import torch
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(torch.where(nan, 0.0, a).view(torch.int32),
+                                torch.where(nan, 0.0, b).view(torch.int32)))
+
+
 def spd_batch(rng, G: int, n: int, cond_boost: float = 0.0) -> np.ndarray:
     """Seeded SPD batch A'A + n I, rows/cols optionally scaled by
     10^[0, cond_boost] to widen the spectrum (tests/test_linalg.py:17-24)."""
@@ -107,8 +136,10 @@ def spd_batch(rng, G: int, n: int, cond_boost: float = 0.0) -> np.ndarray:
 
 
 def kernel_phase(device) -> dict:
-    """chol_tri_inv against its plain version on the card; returns the
-    numbers of the main path's (256, 87, 87) case."""
+    """chol_tri_inv on the card against its plain version (within 1e-4) and
+    against its step mirror ``chol_tri_inv_sweep`` (bit for bit: both round
+    every operation alike); returns the numbers of the main path's
+    (256, 87, 87) case."""
     import torch
     from racing_lmpc_torch.ops import linalg
 
@@ -136,51 +167,78 @@ def kernel_phase(device) -> dict:
     d = 1.0 / np.sqrt(np.einsum("bii->bi", wide))
     cases.append(("wide spectrum, Jacobi-scaled",
                   (wide * d[:, :, None] * d[:, None, :]).astype(np.float32), False))
+    cases.append(("Schur block, controller", spd_batch(rng, 1, 1), True))
+    # the panel edges: whole panels, one pivot into a new panel, the last
+    # variant (its last panel holds 2 of 4 row tiles) and the limit
+    for n in (32, 64, 96, 97, 225, 240):
+        cases.append((f"panel edge n={n}", spd_batch(rng, 4, n), False))
     main = None
     for name, Hn, timed in cases:
         H = torch.as_tensor(Hn, device=device)
         K = linalg.chol_tri_inv(H)
         P = linalg.chol_tri_inv_plain(H)
+        S = linalg.chol_tri_inv_sweep(H)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(K).all()), f"{name}: kernel gave non-finite values")
         err = rel_err(K, P)
         check(err < 1e-4, f"{name} {tuple(H.shape)}: kernel vs plain {err:.2e} > 1e-4")
+        check(same_bits(K, S), f"{name} {tuple(H.shape)}: kernel not bit-equal to the "
+              f"sweep mirror (max diff {float((K - S).abs().max()):.3e})")
         check(bool((torch.triu(K, 1) == 0).all()), f"{name}: upper part not zero")
-        line = f"kernel {name} {tuple(H.shape)}: max rel err vs plain {err:.3e}"
+        line = (f"kernel {name} {tuple(H.shape)}: max rel err vs plain {err:.3e}, "
+                f"bit-equal to the sweep mirror")
         if timed:
             G, n = H.shape[0], H.shape[-1]
             ms = cuda_time_ms(lambda: linalg.chol_tri_inv(H), reps=20)
+            dev = device_ms(lambda: linalg.chol_tri_inv(H), reps=20)
             plain_ms = cuda_time_ms(lambda: linalg.chol_tri_inv_plain(H), reps=5)
             lib_ms = cuda_time_ms(lambda: library(H), reps=20)
+            lib_dev = device_ms(lambda: library(H), reps=20)
             # the lower triangle of each symmetric input read once (all the
             # function needs), each dense output written once
             bytes_ms = G * (n * (n + 1) // 2 + n * n) * 4 / HBM_BYTES_PER_S * 1e3
             flops_ms = G * (2.0 / 3.0) * n ** 3 / F32_FLOP_PER_S * 1e3
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                     f"torch.linalg yardstick {lib_ms:.4f} ms, bound "
-                     f"{max(bytes_ms, flops_ms):.5f} ms")
+            # one matrix's pivots are a dependent chain on one SM
+            floor_ms = (2.0 / 3.0) * n ** 3 / (F32_FLOP_PER_S / SM_COUNT) * 1e3
+            line += (f"; kernel {ms:.4f} ms a call ({dev:.4f} ms on the device), plain "
+                     f"{plain_ms:.4f} ms, torch.linalg yardstick {lib_ms:.4f} ms a call "
+                     f"({lib_dev:.4f} ms on the device), bound "
+                     f"{max(bytes_ms, flops_ms):.5f} ms, one-SM floor {floor_ms:.5f} ms; "
+                     f"kernel {'<=' if ms <= lib_ms else '>'} yardstick")
             if main is None:
                 main = {"max_abs_err": float((K - P).abs().max()), "ms": ms,
-                        "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "device_ms": dev, "plain_ms": plain_ms, "library_ms": lib_ms,
                         "bound_ms": max(bytes_ms, flops_ms),
                         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
         print(line, flush=True)
 
-    # one indefinite lane: NaN there, every other lane untouched
+    # one indefinite lane: NaN there (from the bad pivot's row on), every
+    # other lane untouched
     Hn = spd_batch(rng, 16, 87)
     Hn[5, 40, 40] = -1.0e4
     H = torch.as_tensor(Hn, device=device)
     K = linalg.chol_tri_inv(H)
     P = linalg.chol_tri_inv_plain(H)
+    S = linalg.chol_tri_inv_sweep(H)
     torch.cuda.synchronize()
     bad = ~torch.isfinite(K).flatten(1).all(dim=1)
     check(bad.tolist() == [i == 5 for i in range(16)],
           f"indefinite lane: non-finite lanes {bad.nonzero().flatten().tolist()}, want [5]")
+    check(bool(torch.isfinite(K[5, :40]).all()), "indefinite lane: NaN above the bad pivot")
+    check(same_bits(K, S), "indefinite batch: kernel not bit-equal to the sweep mirror")
+    check(bool((torch.triu(K, 1) == 0).all()), "indefinite batch: upper part not zero")
     keep = torch.arange(16, device=device) != 5
     err = rel_err(K[keep], P[keep])
     check(err < 1e-4, f"indefinite batch: other lanes vs plain {err:.2e}")
-    print(f"kernel indefinite lane: NaN in lane 5 only; others vs plain {err:.3e}",
-          flush=True)
+    print(f"kernel indefinite lane: NaN in lane 5 only, rows >= 40; others vs plain "
+          f"{err:.3e}; bit-equal to the sweep mirror", flush=True)
+    big = linalg.chol_max_n() + 1
+    try:
+        linalg.chol_tri_inv(torch.zeros(1, big, big, device=device))
+    except ValueError as e:
+        print(f"kernel chol_tri_inv refuses n={big}: {e}", flush=True)
+    else:
+        raise AssertionError(f"chol_tri_inv took n={big}")
     return main
 
 

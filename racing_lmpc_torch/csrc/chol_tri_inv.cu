@@ -5,124 +5,417 @@
 // The IPM factors its Newton-KKT matrix H and the Schur block with it at
 // every iteration (racing_lmpc_tpu/mpc/ipm.py:214-218 and :231).
 //
-// Design (first, simple version):
-// - one thread block per matrix; the matrix is loaded once, at its true n,
-//   into dynamic shared memory (no identity padding on the card), factored
-//   and inverted in place, and written back once;
-// - Cholesky: right-looking, one column per step, one __syncthreads()
-//   between steps.  Step j reads column j unscaled and applies the rank-1
-//   update A[i][k] -= (A[i][j]/d)(A[k][j]/d), k > j, to the trailing lower
-//   triangle; the scaling of column j itself (and its diagonal d) is written
-//   in step j+1, when nothing reads column j any more, from the d each
-//   thread kept in a register;
-// - triangular inverse: column c of X = L^-1 is an independent forward
-//   substitution L x = e_c, so thread c solves it alone with no barrier,
-//   keeping x_i (i > c) in the unused strictly-upper row c of the shared
-//   matrix and x_c in a separate diagonal vector;
-// - the output is written with its strictly upper part zero.
-// A non-positive pivot gives NaN through sqrtf, which spreads through that
-// matrix's remaining columns and into its inverse — as in the plain version,
-// whose NaN the IPM's step_ok guard relies on (ipm.py:434-444).  Nothing
-// traps or exits early, and no other matrix is touched.
+// Algorithm: one right-looking sweep that forms X = L^-1 in place, with no
+// separate substitution.  One n x n lower-triangular store M: slot (i, k),
+// k <= i, holds the trailing matrix A while k > j and the working rows W
+// of the inverse (started from I) once k <= j.  At pivot j:
+//   r = 1 / sqrt(M[j][j])                     (NaN if H is not PD)
+//   row j of X is final: X[j][k] = M[j][k] r (k < j), X[j][j] = r
+//   l_i = M[i][j] r                            (i > j)
+//   u = (X[j][0..j], l_{j+1..n-1}); M[i][j] = 0, then for every row i > j
+//   M[i][k] = M[i][k] - l_i u_k               (k <= i, one uniform update)
+// n^3/3 multiply-subtracts in all, as potrf + trtri.  The plain PyTorch
+// step mirror is ops/linalg.py::chol_tri_inv_sweep.
 //
-// Bound on an H100 SXM at the main path's shape (256, 87, 87): the lower
-// triangle of each symmetric input is read once and the dense output written
-// once, 256 * (87*88/2 + 87^2) * 4 B = 11.7 MB, 3.5 us at 3.35 TB/s; the
-// arithmetic is n^3/3 flops for the factor and n^3/3 for the
-// inverse (LAPACK's potrf + trtri counts), 256 * 2/3 * 87^3 = 112 MFLOP,
-// 1.7 us at 67 TFLOP/s of f32 outside the tensor cores.  So the bound is
-// bytes.  In this first design neither sets the time: the n sequential
-// column steps of the factor and the n-long serial chain of thread 0's
-// substitution do, with one block per matrix and most threads idle late in
-// each step.  Making it fast is later work.
+// Numerics, choice (a): no FMA contraction.  Every product, difference,
+// quotient and square root is rounded on its own (__fmul_rn, __fsub_rn,
+// __fdiv_rn, __fsqrt_rn; no fast math), so the kernel repeats the mirror
+// operation for operation and is bit-equal to it on the card.  Scaling by
+// the rounded reciprocal r rounds twice where a quotient rounds once: half
+// an ulp more per entry, against the 1e-4 the kernel is held to.
+//
+// Design: the sweep in blocked order, one block of 8 warps (256 threads)
+// per matrix, the matrix in registers.  Thread (warp w, lane l) owns rows
+// i = w + 8 a (a < RA) and columns k = l + 32 b (b < RB): rows dealt
+// cyclically to warps, columns to lanes, no index ever divided; only the
+// tiles (a, b) that reach the lower triangle are kept.  Every loop over a
+// tile is unrolled by templates (sfor), so each register index is a
+// constant and nothing goes to local memory.  The pivots go in panels of
+// 32, the columns of one tile t; for each panel, with one __syncthreads()
+// between steps:
+//   S1  the panel rows go to shared memory: the diagonal block D and,
+//       transposed, their part left of the panel (UT);
+//   S2  one warp sweeps D alone (lane c holds row c; each pivot's u on the
+//       panel goes through shared memory with a __syncwarp): r_p, the
+//       panel's block of X, and u^(p) on the panel (UP);
+//   S3  every warp sweeps its rows below the panel on the panel's columns
+//       (lane p's value, times r_p, is l_i of pivot p; a shuffle hands it
+//       to the warp) and keeps each l_i in UT; the panel rows' part left
+//       of the panel is a forward substitution down the panel, one column
+//       a thread, into X;
+//   S4  the panel rows take their X; the rows below take the deferred
+//       updates of the panel's 32 pivots on every other tile, in pivot
+//       order, four pivots to a 16-byte shared load.
+// The blocking changes no bit, because no element's operations change or
+// move past one another: an element takes pivot j's multiply-subtract, with
+// the same two factors l_i and u_k, whichever stage applies it; the panels
+// go in order, and every stage applies a panel's pivots to an element in
+// ascending order (S2 and S3 pivot by pivot, the substitution down the
+// panel rows, S4 column c of UT after column c - 1), after every pivot of
+// the panels before and before any of the panels after.  A pivot costs a
+// barrier only once a panel: S2 is the one dependent chain, a warp-level
+// sweep of 32 pivots (an unblocked form with one barrier a pivot, tried
+// first, was held back by that chain at every shape; PERF.md).  Up to
+// n = 96 two matrices share an SM; n <= 240 (kMaxN).
+// Shared memory: at most 45 KB, static, so no per-launch
+// cudaFuncSetAttribute: the host pays one launch and one cudaGetLastError().
+// n = 1 (the IPM's Schur block) takes a one-thread-per-matrix kernel,
+// 1 / sqrt(h).
+// A non-positive pivot gives NaN through sqrt, which spreads through that
+// matrix's rows from the bad pivot on — the IPM's step_ok guard relies on
+// it (ipm.py:434-444).  Nothing traps or exits early, and no other matrix
+// is touched.
+//
+// Bound on an H100 SXM (700 W): the lower triangle of each symmetric input
+// read once and each dense output written once, 4 G (n(n+1)/2 + n^2)
+// bytes over 3.35 TB/s, against 2/3 n^3 flops a matrix over 67 TFLOP/s of
+// f32 outside the tensor cores: bytes at the main path's (256, 87, 87),
+// 3.5 us.  At batch 1 one SM holds the matrix, whose arithmetic floor is
+// 2/3 n^3 / (67 TFLOP/s / 132): 7 us at n = 175, 13 us at n = 216.  At
+// batch 1 the one-warp panel sweeps (S2) and the shuffled row sweeps (S3)
+// are the dependent chains; registers and spills of each variant: ptxas
+// -v, printed by chip_smoke.py; times in PERF.md.
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+#include <utility>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxN = 240;
+constexpr int kLd = 36;   // row stride of the shared panel arrays: 16-byte rows
+constexpr int W = 8;      // warps a matrix: 256 threads
 
-__global__ void __launch_bounds__(kThreads)
-chol_tri_inv_kernel(const float* __restrict__ H, float* __restrict__ out, int n)
+// f(integral_constant<int, 0>), ..., f(integral_constant<int, N - 1>):
+// a loop whose index is a constant in each copy of the body
+template <class F, int... I>
+__device__ __forceinline__ void sfor_impl(F&& f, std::integer_sequence<int, I...>)
 {
-    extern __shared__ float sm[];
-    float* A = sm;           // n * n, row-major; lower triangle holds L
-    float* xd = sm + n * n;  // diagonal of L^-1
-    const int nn = n * n;
-    const size_t base = (size_t)blockIdx.x * (size_t)nn;
-    const int tid = threadIdx.x;
+    (f(std::integral_constant<int, I>{}), ...);
+}
 
-    // only the lower triangle is read: the factor touches A[i][k] for k <= i
-    // alone, and the inverse writes the strictly upper part before reading it
-    for (int e = tid; e < nn; e += kThreads) {
-        const int i = e / n;
-        if (e - i * n <= i) A[e] = H[base + e];
-    }
-    __syncthreads();
+template <int N, class F>
+__device__ __forceinline__ void sfor(F&& f)
+{
+    sfor_impl(f, std::make_integer_sequence<int, N>{});
+}
 
-    // ---- Cholesky, right-looking, one barrier per column ----------------
-    float dprev = 0.0f;
-    for (int j = 0; j <= n; ++j) {
-        if (j > 0) {
-            // finish column j - 1: nothing reads it in this step
-            const int c = j - 1;
-            for (int i = c + 1 + tid; i < n; i += kThreads)
-                A[i * n + c] = A[i * n + c] / dprev;
-            if (tid == 0) A[c * n + c] = dprev;
+// the last 32-column tile that row tile a reaches
+__host__ __device__ constexpr int bmax(int RB, int a)
+{
+    return (W * (a + 1) - 1) / 32 < RB - 1 ? (W * (a + 1) - 1) / 32 : RB - 1;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p)
+{
+    return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d)
+{
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+// The panel's diagonal block D (nb x nb, nb <= 32), by one warp: lane c
+// holds row c.  Pivot p: r = 1 / sqrt(D[p][p]); row p of X is D[p][k] r
+// (k < p) and r; l_c = D[c][p] r (c > p), D[c][p] = 0, then
+// D[c][k] -= l_c u_k with u = (row p of X, l).  Each pivot's u goes to UP[p]
+// and its r to rr[p]; D ends as the panel's block of X.
+__device__ __noinline__ void factor_panel(float (*D)[kLd], float (*UP)[kLd],
+                                          float* rr, int nb)
+{
+    const int l = threadIdx.x & 31;
+    float Dr[32];
+    sfor<8>([&](auto m_) {
+        constexpr int m = decltype(m_)::value;
+        const float4 v = ld4(&D[l][4 * m]);
+        Dr[4 * m] = v.x; Dr[4 * m + 1] = v.y; Dr[4 * m + 2] = v.z; Dr[4 * m + 3] = v.w;
+    });
+    sfor<32>([&](auto p_) {
+        constexpr int p = decltype(p_)::value;
+        if (p < nb) {
+            const float r = __fdiv_rn(1.0f, __fsqrt_rn(__shfl_sync(kFull, Dr[p], p)));
+            float lc = 0.0f;
+            if (l == p) {
+                sfor<p>([&](auto k_) {
+                    constexpr int k = decltype(k_)::value;
+                    Dr[k] = __fmul_rn(Dr[k], r);
+                });
+                Dr[p] = r;
+                sfor<p + 1>([&](auto k_) {
+                    constexpr int k = decltype(k_)::value;
+                    UP[p][k] = Dr[k];
+                });
+                rr[p] = r;
+            } else if (l > p) {
+                lc = __fmul_rn(Dr[p], r);
+                Dr[p] = 0.0f;
+                UP[p][l] = lc;
+            }
+            __syncwarp();
+            if (l > p) {
+                sfor<8>([&](auto m_) {
+                    constexpr int m = decltype(m_)::value;
+                    const float4 v = ld4(&UP[p][4 * m]);
+                    Dr[4 * m] = __fsub_rn(Dr[4 * m], __fmul_rn(lc, v.x));
+                    Dr[4 * m + 1] = __fsub_rn(Dr[4 * m + 1], __fmul_rn(lc, v.y));
+                    Dr[4 * m + 2] = __fsub_rn(Dr[4 * m + 2], __fmul_rn(lc, v.z));
+                    Dr[4 * m + 3] = __fsub_rn(Dr[4 * m + 3], __fmul_rn(lc, v.w));
+                });
+            }
         }
-        if (j < n) {
-            const float d = sqrtf(A[j * n + j]);   // NaN if not PD
-            const int m = n - j - 1;
-            for (int e = tid; e < m * m; e += kThreads) {
-                const int i = j + 1 + e / m;
-                const int k = j + 1 + e % m;
-                if (k <= i) {
-                    const float li = A[i * n + j] / d;
-                    const float lk = A[k * n + j] / d;
-                    A[i * n + k] = A[i * n + k] - li * lk;
+    });
+    sfor<8>([&](auto m_) {
+        constexpr int m = decltype(m_)::value;
+        st4(&D[l][4 * m], Dr[4 * m], Dr[4 * m + 1], Dr[4 * m + 2], Dr[4 * m + 3]);
+    });
+}
+
+// The panel rows' part left of the panel, one column k < j0 a thread, in
+// UT[k][0..nb): a forward substitution down the panel rows.  Row p of X is
+// the row times r_p; it then leaves l_c^(p) X[p][k] from each row c > p.
+__device__ __noinline__ void panel_rows_left(float (*UT)[kLd], const float (*UP)[kLd],
+                                             const float* rr, int j0, int nb)
+{
+    for (int k = threadIdx.x; k < j0; k += blockDim.x) {
+        float col[32];
+        sfor<8>([&](auto m_) {
+            constexpr int m = decltype(m_)::value;
+            const float4 v = ld4(&UT[k][4 * m]);
+            col[4 * m] = v.x; col[4 * m + 1] = v.y; col[4 * m + 2] = v.z; col[4 * m + 3] = v.w;
+        });
+        sfor<32>([&](auto p_) {
+            constexpr int p = decltype(p_)::value;
+            if (p < nb) {
+                const float x = __fmul_rn(col[p], rr[p]);
+                col[p] = x;
+                sfor<32>([&](auto c_) {
+                    constexpr int c = decltype(c_)::value;
+                    if constexpr (c > p) col[c] = __fsub_rn(col[c], __fmul_rn(UP[p][c], x));
+                });
+            }
+        });
+        sfor<8>([&](auto m_) {
+            constexpr int m = decltype(m_)::value;
+            st4(&UT[k][4 * m], col[4 * m], col[4 * m + 1], col[4 * m + 2], col[4 * m + 3]);
+        });
+    }
+}
+
+// RA row tiles (n <= W RA); up to n = 96 two matrices share an SM
+template <int RA>
+__global__ void __launch_bounds__(32 * W, RA * W <= 96 ? 2 : 1)
+chol_tri_inv_panel_kernel(const float* __restrict__ H, float* __restrict__ out, int n)
+{
+    constexpr int RB = (W * RA + 31) / 32;   // 32-column tiles = panels
+    constexpr int TPP = 32 / W;              // row tiles a panel
+    __shared__ __align__(16) float D[32][kLd];        // the diagonal block
+    __shared__ __align__(16) float UP[32][kLd];       // u^(p) on the panel
+    __shared__ float rr[32];                          // r of each pivot
+    __shared__ __align__(16) float UT[32 * RB][kLd];  // u^(p)_k, k-major
+
+    const int w = threadIdx.x >> 5;
+    const int l = threadIdx.x & 31;
+    const size_t base = (size_t)blockIdx.x * (size_t)n * (size_t)n;
+    const float* A = H + base;
+
+    // only the lower triangle is read; slots above it start at 0 and are
+    // never read back
+    float M[RA][RB];
+    sfor<RA>([&](auto a_) {
+        constexpr int a = decltype(a_)::value;
+        const int i = w + W * a;
+        sfor<bmax(RB, a) + 1>([&](auto b_) {
+            constexpr int b = decltype(b_)::value;
+            const int k = l + 32 * b;
+            M[a][b] = (i < n && k <= i) ? A[(size_t)i * n + k] : 0.0f;
+        });
+    });
+
+    sfor<RB>([&](auto t_) {
+        constexpr int t = decltype(t_)::value;
+        constexpr int a_lo = TPP * t, a_hi = TPP * (t + 1);   // the panel's rows
+        const int j0 = 32 * t;
+        if (j0 >= n) return;
+        const int nb = n - j0 < 32 ? n - j0 : 32;
+
+        // ---- S1: the panel rows into D (tile t) and UT (left of it) ------
+        sfor<RA>([&](auto a_) {
+            constexpr int a = decltype(a_)::value;
+            if constexpr (a >= a_lo && a < a_hi) {
+                const int i = w + W * a;
+                if (i < n) {
+                    D[i - j0][l] = M[a][t];
+                    sfor<t>([&](auto b_) {
+                        constexpr int b = decltype(b_)::value;
+                        UT[l + 32 * b][i - j0] = M[a][b];
+                    });
                 }
             }
-            dprev = d;
+        });
+        __syncthreads();
+
+        // ---- S2: one warp factors the diagonal block ---------------------
+        if (w == 0) factor_panel(D, UP, rr, nb);
+        __syncthreads();
+
+        // ---- S3: the rows below on the panel's columns (each warp its own
+        // rows: lane p's value, scaled, is l_i of pivot p), and the panel
+        // rows left of the panel (one column a thread) --------------------
+        float keep[RA];
+        sfor<RA>([&](auto a_) { keep[decltype(a_)::value] = 0.0f; });
+        for (int p = 0; p < nb; ++p) {
+            const float r = rr[p];
+            const float up = UP[p][l];
+            sfor<RA>([&](auto a_) {
+                constexpr int a = decltype(a_)::value;
+                if constexpr (a >= a_hi) {
+                    const float li = __fmul_rn(__shfl_sync(kFull, M[a][t], p), r);
+                    keep[a] = l == p ? li : keep[a];
+                    const float m0 = l == p ? 0.0f : M[a][t];
+                    M[a][t] = __fsub_rn(m0, __fmul_rn(li, up));
+                }
+            });
+        }
+        sfor<RA>([&](auto a_) {
+            constexpr int a = decltype(a_)::value;
+            if constexpr (a >= a_hi) UT[w + W * a][l] = keep[a];
+        });
+        panel_rows_left(UT, UP, rr, j0, nb);
+        __syncthreads();
+
+        // ---- S4: the panel rows take their X; the rows below take the
+        // deferred updates of the panel's pivots, in pivot order ------------
+        sfor<RA>([&](auto a_) {
+            constexpr int a = decltype(a_)::value;
+            if constexpr (a >= a_lo && a < a_hi) {
+                const int i = w + W * a;
+                if (i < n) {
+                    M[a][t] = D[i - j0][l];
+                    sfor<t>([&](auto b_) {
+                        constexpr int b = decltype(b_)::value;
+                        M[a][b] = UT[l + 32 * b][i - j0];
+                    });
+                }
+            }
+        });
+        if constexpr (a_hi < RA) {
+            int c = 0;
+            for (; c + 4 <= nb; c += 4) {
+                float4 uk[RB];
+                sfor<RB>([&](auto b_) {
+                    constexpr int b = decltype(b_)::value;
+                    if constexpr (b != t) uk[b] = ld4(&UT[l + 32 * b][c]);
+                });
+                sfor<RA>([&](auto a_) {
+                    constexpr int a = decltype(a_)::value;
+                    if constexpr (a >= a_hi) {
+                        const float4 li = ld4(&UT[w + W * a][c]);
+                        sfor<bmax(RB, a) + 1>([&](auto b_) {
+                            constexpr int b = decltype(b_)::value;
+                            if constexpr (b != t) {
+                                float m = M[a][b];
+                                m = __fsub_rn(m, __fmul_rn(li.x, uk[b].x));
+                                m = __fsub_rn(m, __fmul_rn(li.y, uk[b].y));
+                                m = __fsub_rn(m, __fmul_rn(li.z, uk[b].z));
+                                m = __fsub_rn(m, __fmul_rn(li.w, uk[b].w));
+                                M[a][b] = m;
+                            }
+                        });
+                    }
+                });
+            }
+            for (; c < nb; ++c) {
+                float uk[RB];
+                sfor<RB>([&](auto b_) {
+                    constexpr int b = decltype(b_)::value;
+                    if constexpr (b != t) uk[b] = UT[l + 32 * b][c];
+                });
+                sfor<RA>([&](auto a_) {
+                    constexpr int a = decltype(a_)::value;
+                    if constexpr (a >= a_hi) {
+                        const float li = UT[w + W * a][c];
+                        sfor<bmax(RB, a) + 1>([&](auto b_) {
+                            constexpr int b = decltype(b_)::value;
+                            if constexpr (b != t)
+                                M[a][b] = __fsub_rn(M[a][b], __fmul_rn(li, uk[b]));
+                        });
+                    }
+                });
+            }
         }
         __syncthreads();
-    }
+    });
 
-    // ---- L^-1: one independent forward substitution per column ----------
-    for (int c = tid; c < n; c += kThreads) {
-        const float xc = 1.0f / A[c * n + c];
-        xd[c] = xc;
-        float* xrow = A + c * n;   // x_i for i > c, strictly upper row c
-        for (int i = c + 1; i < n; ++i) {
-            const float* li = A + i * n;
-            float acc = li[c] * xc;
-            for (int k = c + 1; k < i; ++k) acc += li[k] * xrow[k];
-            xrow[i] = -acc / li[i];
-        }
-    }
-    __syncthreads();
-
+    // ---- X, with its strictly upper part zero ---------------------------
     float* O = out + base;
-    for (int e = tid; e < nn; e += kThreads) {
-        const int i = e / n;
-        const int c = e - i * n;
-        O[e] = c < i ? A[c * n + i] : (c == i ? xd[i] : 0.0f);
-    }
+    sfor<RA>([&](auto a_) {
+        constexpr int a = decltype(a_)::value;
+        const int i = w + W * a;
+        if (i < n) {
+            sfor<RB>([&](auto b_) {
+                constexpr int b = decltype(b_)::value;
+                const int k = l + 32 * b;
+                if (k < n) {
+                    float x = 0.0f;
+                    if constexpr (b <= bmax(RB, a)) {
+                        if (k <= i) x = M[a][b];
+                    }
+                    O[(size_t)i * n + k] = x;
+                }
+            });
+        }
+    });
+}
+
+// n = 1: one thread a matrix
+__global__ void chol_tri_inv_1x1_kernel(const float* __restrict__ H,
+                                        float* __restrict__ out, int G)
+{
+    const int g = blockIdx.x * blockDim.x + threadIdx.x;
+    if (g < G) out[g] = __fdiv_rn(1.0f, __fsqrt_rn(H[g]));
+}
+
+using Launch = void (*)(const float*, float*, int, int, cudaStream_t);
+
+template <int RA>
+void launch(const float* H, float* out, int G, int n, cudaStream_t s)
+{
+    chol_tri_inv_panel_kernel<RA><<<G, 32 * W, 0, s>>>(H, out, n);
+}
+
+// the variant of p panels: whole panels of row tiles, up to n = kMaxN
+template <int... P>
+Launch variant(int panels, std::integer_sequence<int, P...>)
+{
+    constexpr int tpp = 32 / W, max_ra = (kMaxN + W - 1) / W;
+    static const Launch fns[] = {
+        launch<(tpp * (P + 1) < max_ra ? tpp * (P + 1) : max_ra)>...};
+    return fns[panels - 1];
 }
 
 }  // namespace
 
+// The largest n the kernel takes; the wrapper reads it from here.
+extern "C" int chol_tri_inv_max_n() { return kMaxN; }
+
 // H, out: (G, n, n) contiguous f32 on the device; stream: a cudaStream_t.
-// Returns cudaGetLastError() after the launch (0 on success), so that a
-// launch refused for its shared memory is reported, not silent.
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue, without launching, for n > kMaxN (there is no
+// variant to launch).
 extern "C" int chol_tri_inv_f32(const float* H, float* out, int G, int n,
                                 void* stream)
 {
     if (G <= 0 || n <= 0) return 0;
-    const size_t smem = ((size_t)n * n + n) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        chol_tri_inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    chol_tri_inv_kernel<<<G, kThreads, smem, (cudaStream_t)stream>>>(H, out, n);
+    if (n > kMaxN) return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (n == 1) {
+        chol_tri_inv_1x1_kernel<<<(G + 255) / 256, 256, 0, s>>>(H, out, G);
+        return (int)cudaGetLastError();
+    }
+    constexpr int kPanels = (kMaxN + 31) / 32;
+    variant((n + 31) / 32, std::make_integer_sequence<int, kPanels>())(H, out, G, n, s);
     return (int)cudaGetLastError();
 }

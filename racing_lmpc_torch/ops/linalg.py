@@ -10,7 +10,11 @@ Port of ``racing_lmpc_tpu/ops/pallas_linalg.py``:
   ``csrc/chol_tri_inv.cu`` that replaces the TPU kernel
   ``chol_tri_inv_fused`` (``:312-368``).  On a CPU tensor it runs the plain
   version ``tri_inv_lower(chol_lower(H))``; on a CUDA tensor it launches the
-  kernel or raises.  See the kernel source for what bounds it;
+  kernel or raises.  ``chol_tri_inv_sweep`` repeats the kernel's own
+  algorithm step for step (one in-place sweep, every operation rounded on
+  its own), so that the kernel can be held to it bit for bit; only the
+  tests and ``chip_smoke.py`` call it.  See the kernel source for what
+  bounds it;
 - ``gj_inverse``, the wrapper of ``csrc/gj_inverse.cu``, which replaces the
   TPU kernel ``gj_inverse`` (``:98-136``): a batched Gauss-Jordan inverse
   with swap-free partial pivoting, and its plain version
@@ -29,10 +33,6 @@ import torch
 from torch import Tensor
 
 from racing_lmpc_torch.ops import _kernels
-
-# dynamic shared memory one block can hold on Hopper (227 KB)
-_SMEM_MAX = 232448
-
 
 def _chol_small(S: Tensor) -> Tensor:
     """Unrolled column Cholesky of a small SPD batch (..., b, b), b <= ~32.
@@ -156,6 +156,37 @@ def chol_tri_inv_plain(H: Tensor) -> Tensor:
     return tri_inv_lower(chol_lower(H))
 
 
+def chol_tri_inv_sweep(H: Tensor) -> Tensor:
+    """``L^-1`` for ``L = chol(H)`` by the kernel's own algorithm: one
+    right-looking sweep that forms ``L^-1`` in place, step for step as
+    ``csrc/chol_tri_inv.cu`` does it, with every product, difference,
+    quotient and square root rounded on its own (eager PyTorch contracts
+    nothing).  So on the card the kernel is bit-equal to it.
+
+    One lower-triangular store M: slot (i, k) holds the trailing matrix
+    while k > j and the working rows of the inverse once k <= j.  At pivot
+    j: ``r = 1 / sqrt(M[j, j])`` (NaN if not PD), row j of ``L^-1`` is
+    ``M[j, :j] r`` and ``r``, ``l = M[j+1:, j] r``; with ``u`` that row
+    followed by ``l``, every row i > j takes ``M[i, k] -= l_i u_k`` after
+    ``M[i, j]`` restarts from 0.  The result's strictly upper part is zero;
+    a non-PD matrix gives NaN in its rows from the bad pivot on.
+    """
+    n = H.shape[-1]
+    M = torch.tril(H)
+    for j in range(n):
+        # the square root and the reciprocal go through f64, which rounds
+        # them correctly to f32 (__fsqrt_rn, __fdiv_rn): torch's vectorized
+        # f32 sqrt on the CPU is not correctly rounded
+        d = torch.sqrt(M[..., j, j:j + 1].double()).float()       # (..., 1)
+        r = (1.0 / d.double()).float()
+        u = torch.cat([M[..., j, :j] * r, r, M[..., j + 1:, j] * r], dim=-1)
+        M[..., j, :j + 1] = u[..., :j + 1]
+        if j + 1 < n:
+            M[..., j + 1:, j] = 0.0
+            M[..., j + 1:, :] = M[..., j + 1:, :] - u[..., j + 1:, None] * u[..., None, :]
+    return torch.tril(M)
+
+
 @functools.cache
 def _kernel_fn():
     fn = _kernels.load("chol_tri_inv").chol_tri_inv_f32
@@ -165,6 +196,16 @@ def _kernel_fn():
     return fn
 
 
+@functools.cache
+def chol_max_n() -> int:
+    """The largest n the kernel takes, as its source states it (``kMaxN``
+    in ``csrc/chol_tri_inv.cu``); builds the kernel if needed."""
+    fn = _kernels.load("chol_tri_inv").chol_tri_inv_max_n
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return int(fn())
+
+
 def chol_tri_inv(H: Tensor) -> Tensor:
     """``L^-1`` for ``L = chol(H)`` over a batch of SPD matrices (..., n, n).
 
@@ -172,7 +213,8 @@ def chol_tri_inv(H: Tensor) -> Tensor:
     positive definite gives NaN (in that matrix only).  A CPU tensor takes
     the plain version; a CUDA tensor launches the hand-written kernel
     (``csrc/chol_tri_inv.cu``) or raises — there is no fall back.
-    ``chol_tri_inv.launches`` counts the kernel launches.
+    ``chol_tri_inv.launches`` counts the kernel launches.  The kernel takes
+    n <= ``chol_max_n()`` and raises ``ValueError`` above it.
 
     The kernel replaces the TPU kernel ``chol_tri_inv_fused``
     (``racing_lmpc_tpu/ops/pallas_linalg.py:312-368``).  On an H100 at the
@@ -180,8 +222,8 @@ def chol_tri_inv(H: Tensor) -> Tensor:
     each symmetric input read once, each dense output written once: 3.5 us
     at 3.35 TB/s) against 112 MFLOP of f32
     (n^3/3 for the factor and n^3/3 for the inverse: 1.7 us at 67 TFLOP/s),
-    so bytes bound it; in this first design the n sequential column steps,
-    not the bytes, set its time.
+    so bytes bound it; the dependent chain of its n pivots sets its time
+    (see the kernel source).
     """
     if H.dtype != torch.float32:
         raise TypeError(f"chol_tri_inv takes float32, got {H.dtype}")
@@ -194,10 +236,8 @@ def chol_tri_inv(H: Tensor) -> Tensor:
     if H.device.type != "cuda":
         raise ValueError(f"chol_tri_inv runs on cpu or cuda, not {H.device}")
     n = H.shape[-1]
-    smem = (n * n + n) * 4
-    if smem > _SMEM_MAX:
-        raise ValueError(f"chol_tri_inv: n={n} needs {smem} B of shared "
-                         f"memory, more than the {_SMEM_MAX} B one block has")
+    if n > chol_max_n():
+        raise ValueError(f"chol_tri_inv: the kernel takes n <= {chol_max_n()}, got {n}")
     G = H.numel() // (n * n) if n else 0
     out = torch.empty_like(H)
     if G == 0 or n == 0:

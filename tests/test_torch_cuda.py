@@ -53,6 +53,20 @@ def test_chol_tri_inv_kernel_matches_plain(cuda, n):
         tl.chol_tri_inv(torch.zeros(1, 241, 241, device=cuda))
 
 
+@pytest.mark.parametrize("G", [1, 32])
+@pytest.mark.parametrize("n", [1, 2, 32, 33, 87, 96, 97, 175, 216, 225, 240])
+def test_chol_tri_inv_kernel_matches_sweep_bit_for_bit(cuda, n, G):
+    # the kernel and its step mirror round every operation alike; the sizes
+    # take in the panel edges (32, 96/97 where two matrices stop sharing an
+    # SM) and the last variant (225-240: its last panel holds 2 of 4 row
+    # tiles) up to the limit
+    H = torch.as_tensor(spd(np.random.default_rng(1000 + n), G, n), device=cuda)
+    K = tl.chol_tri_inv(H)
+    S = tl.chol_tri_inv_sweep(H)
+    torch.cuda.synchronize()
+    assert torch.equal(K.view(torch.int32), S.view(torch.int32))
+
+
 def test_solve_batch_on_card_matches_cpu(cuda):
     from racing_lmpc_torch.benchmarks import build_barc_lmpc, make_scenario_batch
     out = {}
