@@ -12,12 +12,14 @@
    also bit for bit against its step mirror ``chol_tri_inv_sweep``, on a
    wide-spectrum case and a batch with one indefinite lane (NaN there
    only), and its raise above n=240; ``gj_inverse`` on a pivoting case,
-   exact |pivot| ties (the same pivots as the plain version) and a singular
-   lane, and its raise above b=64.  Times kernel, plain version and a
-   library yardstick with CUDA events, synchronizing after every
-   repetition, and the kernel's and the yardstick's device time under the
-   profiler; ``chol_tri_inv`` also beside the one-SM floor of a batch-1
-   chain.
+   exact |pivot| ties, the edges of its size classes (b = 1 to 64) and a
+   singular lane in each class: the same pivots, the same non-finite
+   entries and the same bits on the finite ones as the plain version, and
+   its raise above b=64.  Times kernel, plain version and a library
+   yardstick with CUDA events, synchronizing after every repetition, and
+   the kernel's and the yardstick's device time under the profiler;
+   ``chol_tri_inv`` also beside the one-SM floor of a batch-1 chain,
+   ``gj_inverse`` beside the operation floor of its bit-exact algorithm.
 3. Batched paths: the flagship batched LMPC solve (N=20, K=48, batch 256),
    then the shipped configuration (N=40, K=96, batch 128), each held against
    stored runs of the JAX reference (``tests/data/torch_port/<case>.npz``,
@@ -72,6 +74,10 @@ CTRL_REPLAYS = {"ctrl_barc_lmpc": 5, "ctrl_putnam_short_lmpc": 5}
 # H100 SXM published peaks (NVIDIA data sheet) for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12          # f32 outside the tensor cores
+# f32 instructions a second outside the tensor cores, one operation each
+# (132 SMs x 128 lanes x 1.98 GHz): the rate of separately rounded
+# multiplies and subtracts, which cannot pair into FMAs
+F32_INSTR_PER_S = 132 * 128 * 1.98e9
 SM_COUNT = 132                  # for the one-SM floor of a batch-1 chain
 
 
@@ -262,9 +268,12 @@ def hadamard_tie_batch(rng) -> np.ndarray:
 
 
 def gj_kernel_phase(device) -> dict:
-    """gj_inverse against its plain version on the card: the same pivots
-    and, as both round every operation alike, the same values; returns the
-    numbers of the (65536, 16, 16) case."""
+    """gj_inverse against its plain version on the card: the same pivots,
+    the same non-finite pattern and, as both round every operation alike,
+    the same bits on every finite entry, in every case (the size classes'
+    edges and a singular lane in each class among them); returns the
+    numbers of the (65536, 16, 16) case, with every timed shape's under
+    ``shapes``."""
     import torch
     from racing_lmpc_torch.ops import linalg
 
@@ -274,15 +283,23 @@ def gj_kernel_phase(device) -> dict:
         A = rng.normal(size=(G, b, b)) + 2.0 * np.sqrt(b) * np.eye(b)
         return A.astype(np.float32)
 
+    def with_singular_lane(G, b):
+        A = invertible(G, b)
+        A[3] = 0.0
+        return A
+
     pivoting = np.array([[[0, 1, 0], [1, 0, 0], [0, 0, 1]]], np.float32)
     random16 = rng.normal(size=(33, 16, 16)).astype(np.float32) + 4 * np.eye(16, dtype=np.float32)
-    singular = invertible(8, 16)
-    singular[3] = 0.0
     cases = [("pivoting", pivoting, False), ("random (tests/test_linalg.py)", random16, False),
-             ("exact ties", hadamard_tie_batch(rng), False), ("one singular lane", singular, False),
-             ("b=16", invertible(65536, 16), True), ("b=32", invertible(4096, 32), True),
-             ("b=64", invertible(1024, 64), True)]
-    main = None
+             ("exact ties", hadamard_tie_batch(rng), False),
+             ("one singular lane", with_singular_lane(8, 16), False)]
+    # the kernel's size classes (b <= 16, 32, 64) and their edges
+    cases += [(f"class edge b={b}", invertible(37, b), False)
+              for b in (1, 2, 15, 16, 17, 31, 32, 33, 48, 63, 64)]
+    cases += [(f"one singular lane b={b}", with_singular_lane(8, b), False) for b in (32, 64)]
+    cases += [("b=16", invertible(65536, 16), True), ("b=32", invertible(4096, 32), True),
+              ("b=64", invertible(1024, 64), True)]
+    shapes = []
     for name, An, timed in cases:
         A = torch.as_tensor(An, device=device)
         before = linalg.gj_inverse.launches
@@ -293,37 +310,47 @@ def gj_kernel_phase(device) -> dict:
         check(bool(torch.equal(pk, pp)), f"gj {name}: kernel pivots differ from plain")
         fin = torch.isfinite(P)
         check(bool(torch.equal(fin, torch.isfinite(K))), f"gj {name}: non-finite pattern differs")
-        err = float((K[fin] - P[fin]).abs().max())
-        scale = max(1.0, float(P[fin].abs().max()))
-        check(err <= 1e-5 * scale, f"gj {name} {tuple(A.shape)}: kernel vs plain {err:.2e}")
-        line = (f"kernel gj_inverse {name} {tuple(A.shape)}: same pivots, max |kernel - plain| "
-                f"{err:.3e}{' (bit-equal)' if bool(torch.equal(K[fin], P[fin])) else ''}")
+        err = float((K[fin] - P[fin]).abs().max()) if bool(fin.any()) else 0.0
+        check(bool(torch.equal(K[fin].view(torch.int32), P[fin].view(torch.int32))),
+              f"gj {name} {tuple(A.shape)}: kernel not bit-equal to plain on the finite "
+              f"entries (max |diff| {err:.3e})")
+        line = (f"kernel gj_inverse {name} {tuple(A.shape)}: same pivots, same non-finite "
+                f"entries, bit-equal on the finite ones")
         if name == "exact ties":
-            check(bool(torch.equal(K, P)), "gj ties: kernel not bit-equal to plain")
             check(bool(torch.equal(K @ A, torch.eye(16, device=device).expand_as(A))),
                   "gj ties: inverse not exact")
-        if name == "one singular lane":
+        if name.startswith("one singular lane"):
             bad = ~fin.flatten(1).all(dim=1)
             check(bad.tolist() == [i == 3 for i in range(8)],
-                  f"gj singular lane: non-finite lanes {bad.nonzero().flatten().tolist()}")
+                  f"gj {name}: non-finite lanes {bad.nonzero().flatten().tolist()}")
         if timed:
             G, b = A.shape[0], A.shape[-1]
             ms = cuda_time_ms(lambda: linalg.gj_inverse(A), reps=20)
+            dev = device_ms(lambda: linalg.gj_inverse(A), reps=20)
             plain_ms = cuda_time_ms(lambda: linalg.gj_inverse_plain(A), reps=5)
             lib_ms = cuda_time_ms(lambda: torch.linalg.inv(A), reps=20)
+            lib_dev = device_ms(lambda: torch.linalg.inv(A), reps=20)
             # each input read once, each inverse written once; 2 b^3 flops a
             # matrix (LAPACK's getrf + getri count of an inverse)
             bytes_ms = 8.0 * G * b * b / HBM_BYTES_PER_S * 1e3
             flops_ms = 2.0 * G * b ** 3 / F32_FLOP_PER_S * 1e3
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg.inv "
-                     f"yardstick {lib_ms:.4f} ms, bound {max(bytes_ms, flops_ms):.5f} ms")
-            if main is None:
-                main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": lib_ms, "bound_ms": max(bytes_ms, flops_ms),
-                        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+            # the bit-exact algorithm's own floor (kernel note): 4 b^3
+            # separately rounded multiplies and subtracts and 2 b^2 IEEE
+            # divisions (8 instructions each) a matrix at the f32 issue rate
+            op_floor_ms = G * (4.0 * b ** 3 + 8 * 2.0 * b * b) / F32_INSTR_PER_S * 1e3
+            line += (f"; kernel {ms:.4f} ms a call ({dev:.4f} ms on the device), plain "
+                     f"{plain_ms:.4f} ms, torch.linalg.inv yardstick {lib_ms:.4f} ms a call "
+                     f"({lib_dev:.4f} ms on the device), bound "
+                     f"{max(bytes_ms, flops_ms):.5f} ms, operation floor {op_floor_ms:.5f} ms; "
+                     f"kernel {'<=' if ms <= lib_ms else '>'} yardstick")
+            shapes.append({"shape": list(A.shape), "max_abs_err": err, "ms": ms,
+                           "device_ms": dev, "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "library_device_ms": lib_dev, "bound_ms": max(bytes_ms, flops_ms),
+                           "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"})
         print(line, flush=True)
     for bad_input, exc in ((torch.zeros(2, 65, 65, device=device), ValueError),
                            (torch.zeros(2, 8, 8, device=device, dtype=torch.float64), TypeError)):
+        before = linalg.gj_inverse.launches
         try:
             linalg.gj_inverse(bad_input)
         except exc as e:
@@ -331,7 +358,9 @@ def gj_kernel_phase(device) -> dict:
                   flush=True)
         else:
             raise AssertionError(f"gj_inverse took {tuple(bad_input.shape)} {bad_input.dtype}")
-    return main
+        check(linalg.gj_inverse.launches == before, "gj_inverse launched on a refused input")
+    main = {k: v for k, v in shapes[0].items() if k != "shape"}
+    return {**main, "shapes": shapes}
 
 
 def profile(fn, wall_ms: float, label: str) -> float:

@@ -303,7 +303,14 @@ def _gj_kernel_fn():
     return fn
 
 
-GJ_MAX_B = 64
+@functools.cache
+def gj_max_b() -> int:
+    """The largest b the kernel takes, as its source states it (``kMaxB``
+    in ``csrc/gj_inverse.cu``); builds the kernel if needed."""
+    fn = _kernels.load("gj_inverse").gj_inverse_max_b
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return int(fn())
 
 
 def gj_inverse(A: Tensor, return_pivots: bool = False):
@@ -314,11 +321,13 @@ def gj_inverse(A: Tensor, return_pivots: bool = False):
     (..., b), int64.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    hand-written kernel (``csrc/gj_inverse.cu``, b <= 64) or raises — there
-    is no fall back.  A zero pivot gives inf or NaN in that matrix only.
-    ``gj_inverse.launches`` counts the kernel launches.  On an H100 the
-    function must move 8 b^2 bytes and do 2 b^3 flops per matrix, so bytes
-    bound it; see the kernel source for what sets its time.
+    hand-written kernel (``csrc/gj_inverse.cu``) or raises — there is no
+    fall back.  The kernel takes b <= ``gj_max_b()`` and raises
+    ``ValueError`` above it.  A zero pivot gives inf or NaN in that matrix
+    only.  ``gj_inverse.launches`` counts the kernel launches.  On an H100
+    the function must move 8 b^2 bytes a matrix; the bit-exact algorithm's
+    4 b^3 separately rounded operations set a higher floor at b >= 32 (see
+    the kernel source).
     """
     if A.dtype != torch.float32:
         raise TypeError(f"gj_inverse takes float32, got {A.dtype}")
@@ -331,11 +340,12 @@ def gj_inverse(A: Tensor, return_pivots: bool = False):
     if A.device.type != "cuda":
         raise ValueError(f"gj_inverse runs on cpu or cuda, not {A.device}")
     b = A.shape[-1]
-    if b > GJ_MAX_B:
-        raise ValueError(f"gj_inverse: the kernel takes b <= {GJ_MAX_B}, got {b}")
+    if b > gj_max_b():
+        raise ValueError(f"gj_inverse: the kernel takes b <= {gj_max_b()}, got {b}")
     G = A.numel() // (b * b) if b else 0
     inv = torch.empty_like(A)
-    piv = torch.empty(A.shape[:-1], dtype=torch.int32, device=A.device)
+    piv = (torch.empty(A.shape[:-1], dtype=torch.int32, device=A.device)
+           if return_pivots else None)
     if G:
         with torch.cuda.device(A.device):
             err = _gj_kernel_fn()(

@@ -99,18 +99,30 @@ def tie_batch(rng):
     return np.asarray(out, np.float32)
 
 
-@pytest.mark.parametrize("b", [3, 16, 32, 64])
-def test_gj_inverse_kernel_matches_plain(cuda, b):
+@pytest.mark.parametrize("singular", [False, True])
+@pytest.mark.parametrize("b", [1, 2, 3, 15, 16, 17, 31, 32, 33, 48, 63, 64])
+def test_gj_inverse_kernel_matches_plain(cuda, b, singular):
+    # b takes in the edges of the kernel's size classes (16, 32, 64); a
+    # singular lane must give the plain version's pivots and non-finite
+    # entries, and leave the other lanes alone
     rng = np.random.default_rng(b)
-    A = torch.as_tensor((rng.normal(size=(40, b, b)) + 2 * np.sqrt(b) * np.eye(b))
-                        .astype(np.float32), device=cuda)
+    An = (rng.normal(size=(40, b, b)) + 2 * np.sqrt(b) * np.eye(b)).astype(np.float32)
+    if singular:
+        An[7] = 0.0
+    A = torch.as_tensor(An, device=cuda)
     before = tl.gj_inverse.launches
     K, pk = tl.gj_inverse(A, return_pivots=True)
     P, pp = tl.gj_inverse_plain(A, return_pivots=True)
     torch.cuda.synchronize()
     assert tl.gj_inverse.launches == before + 1
     assert torch.equal(pk, pp)
-    assert rel_err(np_of(K), np_of(P)) < 1e-5
+    fin = torch.isfinite(P)
+    assert torch.equal(fin, torch.isfinite(K))
+    assert torch.equal(K[fin].view(torch.int32), P[fin].view(torch.int32))
+    bad = ~fin.flatten(1).all(dim=1)
+    assert bad.tolist() == [singular and g == 7 for g in range(40)]
+    # without pivots asked for (a null pivot pointer), the same bits
+    assert torch.equal(tl.gj_inverse(A).view(torch.int32), K.view(torch.int32))
 
 
 def test_gj_inverse_kernel_ties_and_limits(cuda):
