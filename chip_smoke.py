@@ -35,10 +35,21 @@
    on the track, falls back no more and gets as far as the reference's runs
    (``tests/data/torch_port/ctrl_<scenario>.npz``) allow.  Then the port's
    controller is fed each stored run's per-cycle states and previous
-   controls (teacher forcing), and the median of its readings against
-   those runs must stay within the reference's worst reading between its
-   own runs.  A shorter tracking run covers the controller without a safe
-   set.
+   controls (teacher forcing), and the median of its readings against those
+   runs must stay within the reference's worst reading between its own runs.  A shorter tracking run
+   covers the controller without a safe set.
+5. The rest of the control stack: the flagship batch through the ADMM
+   backend (``qp_method="admm"``, its six ``chol_tri_inv`` launches a
+   solve), held to stored ADMM runs of the reference (the batch, its moved
+   copies, and each lane solved alone) with the batched paths' gates and
+   the longitudinal control's error against the certified optimum;
+   the BARC LMPC with the safe-set error-dynamics regression (8
+   cycles), held as the controller paths are and its per-cycle dA/dB/dC to
+   the reference's spread; a ``ContinuousCoSimulation`` of the BARC LMPC
+   (10 ms plant under the 25 ms controller, an actuation outage, an EKF
+   filtering noisy observations), with the port's EKF replayed on the
+   stored run's observations; the LQR at batch 256 and three legacy
+   full-dynamics solves against the stored ones.
 
 Every path is driven with every launch counter set to 0 just before and
 read just after.  Prints one ``{"kernels": [...]}`` line, and as its last
@@ -67,9 +78,34 @@ CASES = {"barc_n20_k48_b256": (20, 48, 16, 256),
 # tests/torch_port_fixture.py wrote it (the first cycle bootstraps)
 CTRL_CASES = {"ctrl_barc_lmpc": ("barc_lmpc", 20),
               "ctrl_putnam_short_lmpc": ("putnam_short_lmpc", 8)}
+CTRL_CASES["ctrl_barc_lmpc_regression"] = ("barc_lmpc", 8)
 # stored reference runs the port is teacher-forced on: the run itself and
-# its four moved re-runs, all five on both paths
-CTRL_REPLAYS = {"ctrl_barc_lmpc": 5, "ctrl_putnam_short_lmpc": 5}
+# its moved re-runs
+CTRL_REPLAYS = {"ctrl_barc_lmpc": 5, "ctrl_putnam_short_lmpc": 5,
+                "ctrl_barc_lmpc_regression": 2}
+# the error-dynamics regression of tests/test_lmpc.py:97-100, as
+# tests/torch_port_fixture.py sets it on the reference's controller:
+# dist_max, and groups (state inputs, control inputs, output state)
+REGRESSION = (3.0, (((3, 4, 5), (0, 1), 4), ((3, 4, 5), (0, 1), 5)))
+CTRL_REGRESSION = {"ctrl_barc_lmpc_regression": REGRESSION}
+# the flagship batch through the ADMM backend: case -> (batched case whose
+# inputs and certified optima it shares, RacingMPCConfig overrides)
+ADMM_CASES = {"barc_n20_k48_b256_admm": ("barc_n20_k48_b256", {"qp_method": "admm"})}
+ADMM_LAUNCHES = 6        # rho_updates + 1 = 5 KKT factorizations + the polish
+# continuous co-simulation fixture -> (launch scenario, plant ticks,
+# actuation outage [t0, t1) in s), as tests/torch_port_fixture.py wrote it
+CONT_CASES = {"ctrl_barc_lmpc_continuous_ekf": ("barc_lmpc", 50, (0.2, 0.3))}
+# the EKF between plant and controller: full-state observations with this
+# noise from numpy seed EKF_SEED (tests/test_estimator_in_loop.py:26-63)
+EKF_NOISE_STD = (0.01, 0.01, 0.01, 0.03, 0.01, 0.05)
+EKF_SEED = 11
+# the EKF replayed on the stored run's inputs: the state within 1e-5 and
+# the covariance within 1e-4 of the largest stored entry (the same f32
+# operations in another order; 2.8e-9 and 2.9e-6 on the CPU)
+EKF_X_TOL, EKF_P_TOL = 1e-5, 1e-4
+# the control-stack case: the LQR at this batch, and the legacy controller
+STACK_BATCH = 256
+LQR_TOL = 1e-4           # relative to max(1, |reference|)
 
 # H100 SXM published peaks (NVIDIA data sheet) for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
@@ -400,15 +436,19 @@ def spread(a: dict, b: dict, su: np.ndarray) -> dict:
 def error(a: dict, fx) -> dict:
     """How far run ``a`` lies from the certified float64 optimum, over the
     lanes it solved whose optimum certifies: the max relative objective gap,
-    and percentiles of the applied (stages 0-1) and tail steering's
-    |U - U*| / scale_u (steering rides a cost-flat valley, so single lanes
-    of two f32 runs can land far apart while both are near-optimal)."""
+    the max of the longitudinal control's |U - U*| / scale_u (gated on the
+    ADMM path, ``ADMM_GATE_FLOORS``), and percentiles of the applied (stages
+    0-1) and tail steering's |U - U*| / scale_u (steering rides a cost-flat
+    valley, so single lanes of two f32 runs can land far apart while both
+    are near-optimal)."""
     ok = a["solved"] & np.isfinite(fx["obj_star"])
     star = fx["obj_star"][ok]
     gap = np.abs(a["obj"][ok] - star) / np.maximum(np.abs(star), 1.0)
-    d = np.abs(a["U"] - fx["U_star"])[ok][..., 1] / fx["scale_u"][1]
+    dU = np.abs(a["U"] - fx["U_star"])[ok] / fx["scale_u"]
+    d = dU[..., 1]
     applied, tail = d[:, :2].max(-1), d[:, 2:].max(-1)
     return {"objective gap max": float(gap.max()),
+            "lon error max": float(dU[..., 0].max()),
             "applied steer p50": float(np.percentile(applied, 50)),
             "applied steer p90": float(np.percentile(applied, 90)),
             "steer tail p90": float(np.percentile(tail, 90))}
@@ -424,14 +464,18 @@ GATE_FLOORS = {"solved differs": 2, "lon max": 1e-3, "objective gap max": 1e-3,
 
 def reference_runs(fx) -> list[dict]:
     """The stored reference runs: the run on the batch itself, then its
-    re-runs on the inputs moved by about one f32 rounding."""
+    re-runs on the inputs moved by about one f32 rounding, then (an ADMM
+    case) the batch solved lane by lane, through ``solve`` and as batches
+    of one."""
     runs = [(fx["U_optm"], fx["obj"], fx["solved"])]
     runs += list(zip(fx["U_pert"], fx["obj_pert"], fx["solved_pert"]))
+    if "U_alone" in fx:
+        runs += list(zip(fx["U_alone"], fx["obj_alone"], fx["solved_alone"]))
     return [{"U": U.astype(np.float64), "obj": o.astype(np.float64), "solved": s}
             for U, o, s in runs]
 
 
-def gate_limits(fx) -> dict:
+def gate_limits(fx, floors: dict = GATE_FLOORS) -> dict:
     """Each gate's limit: the reference's own worst reading over its stored
     runs (the largest spread between any two of them, the largest error of
     any one from the certified optimum), or the gate's floor where that is
@@ -441,7 +485,13 @@ def gate_limits(fx) -> dict:
                 for b in runs[i + 1:]]
     readings += [error(a, fx) for a in runs]
     return {k: max(floor, *(r[k] for r in readings if k in r))
-            for k, floor in GATE_FLOORS.items()}
+            for k, floor in floors.items()}
+
+
+# the ADMM path's gates: the batched gates, and the longitudinal control's
+# error against the certified optimum, which 400 ADMM iterations do not
+# reach (the reference's own runs leave it a whole box away on some lanes)
+ADMM_GATE_FLOORS = {**GATE_FLOORS, "lon error max": 1e-3}
 
 
 def moved(inp, s: int):
@@ -492,6 +542,18 @@ def held_to_reference(runs: list[dict], fx, limits: dict, label: str) -> list[st
     return failed
 
 
+def load_batch_fixture(case: str) -> dict:
+    """A batched fixture; an ADMM case's outputs joined with the inputs and
+    certified optima of the batch it shares."""
+    with np.load(FIXTURE_DIR / f"{case}.npz") as z:
+        fx = {k: z[k] for k in z.files}
+    if case in ADMM_CASES:
+        with np.load(FIXTURE_DIR / f"{ADMM_CASES[case][0]}.npz") as z:
+            fx.update({k: z[k] for k in z.files
+                       if k.startswith("inp_") or k in ("U_star", "obj_star")})
+    return fx
+
+
 def drive_path(device, case: str, profiled: bool = False) -> tuple:
     """One batched solve of fixture ``case`` through the port's entry points
     with every launch count set to 0 just before and read just after; its
@@ -501,15 +563,15 @@ def drive_path(device, case: str, profiled: bool = False) -> tuple:
     input, the fixture and its gate limits."""
     import torch
     from racing_lmpc_torch.benchmarks import build_barc_lmpc, make_scenario_batch
-    from racing_lmpc_torch.mpc.racing_mpc import MPCInput
-    from racing_lmpc_torch.ops import linalg
+    from racing_lmpc_torch.mpc.racing_mpc import REQUIRED_FIELDS
 
-    n_horizon, num_ss, per_lap, batch = CASES[case]
-    with np.load(FIXTURE_DIR / f"{case}.npz") as z:
-        fx = {k: z[k] for k in z.files}
-    _, track, _, mpc, manager = build_barc_lmpc(n_horizon, num_ss, per_lap, device=device)
+    fx = load_batch_fixture(case)
+    base, overrides = ADMM_CASES.get(case, (case, {}))
+    n_horizon, num_ss, per_lap, batch = CASES[base]
+    _, track, _, mpc, manager = build_barc_lmpc(n_horizon, num_ss, per_lap, device=device,
+                                                **overrides)
     inp = make_scenario_batch(mpc, track, manager, batch=batch, device=device)
-    for name in MPCInput._fields:
+    for name in REQUIRED_FIELDS:
         got, want = getattr(inp, name).cpu().numpy(), fx[f"inp_{name}"]
         check(got.shape == want.shape and np.allclose(got, want, rtol=1e-6, atol=1e-6),
               f"{case}: scenario input {name} differs from the fixture")
@@ -519,8 +581,12 @@ def drive_path(device, case: str, profiled: bool = False) -> tuple:
     torch.cuda.synchronize()
     launches = read_launches()
     print(f"path {case}: launches {launches}", flush=True)
-    check(0 < launches["chol_tri_inv"] <= 150,
-          f"{case}: chol_tri_inv launches {launches['chol_tri_inv']} not in (0, 150]")
+    if case in ADMM_CASES:
+        check(launches["chol_tri_inv"] == ADMM_LAUNCHES,
+              f"{case}: chol_tri_inv launches {launches['chol_tri_inv']}, want {ADMM_LAUNCHES}")
+    else:
+        check(0 < launches["chol_tri_inv"] <= 150,
+              f"{case}: chol_tri_inv launches {launches['chol_tri_inv']} not in (0, 150]")
     check(launches["gj_inverse"] == 0, f"{case}: gj_inverse launched on the path")
     for name in ("X_optm", "U_optm", "dU_optm", "obj"):
         check(bool(torch.isfinite(getattr(out, name)).all()), f"{case}: {name} not finite")
@@ -532,7 +598,7 @@ def drive_path(device, case: str, profiled: bool = False) -> tuple:
               f"reference solved={bool(fx['solved'][b])} r_prim={float(fx['r_prim'][b]):.3e} "
               f"r_dual={float(fx['r_dual'][b]):.3e}", flush=True)
 
-    limits = gate_limits(fx)
+    limits = gate_limits(fx, ADMM_GATE_FLOORS if case in ADMM_CASES else GATE_FLOORS)
     failed = held_to_reference(runs_like_reference(mpc, inp, fx, first=out), fx,
                                limits, f"{case} vs reference")
     check(not failed, f"{case}: outside the reference's own spread on {failed}")
@@ -626,20 +692,64 @@ def ctrl_limits(fx) -> dict:
             for k, floor in CTRL_FLOORS.items()}
 
 
-def teacher_forced(scenario: str, fx, r: int, device, **cosim_kw) -> dict:
+def teacher_forced(scenario: str, fx, r: int, device, regression=None,
+                   continuous: bool = False, **cosim_kw) -> dict:
     """A fresh port controller of ``scenario`` fed the stored run ``r``'s
     per-cycle state and previous control (what the reference's controller
-    was handed), so that the plant cannot amplify differences."""
+    was handed), so that the plant cannot amplify differences.  With
+    ``regression`` (dist_max, groups) the controller runs the error-dynamics
+    regression and each cycle's dA/dB/dC come back too; ``continuous``
+    builds it as ``ContinuousCoSimulation`` does (continuous step mode)."""
     import torch
-    from racing_lmpc_torch.launch.runner import _SCENARIOS, CoSimulation
-    ctrl = CoSimulation(_SCENARIOS[scenario], device=device, **cosim_kw).controller
+    from racing_lmpc_torch.control import RegressionSpec
+    from racing_lmpc_torch.launch.runner import (
+        _SCENARIOS, ContinuousCoSimulation, CoSimulation)
+    cls = ContinuousCoSimulation if continuous else CoSimulation
+    sim = cls(_SCENARIOS[scenario], device=device, **cosim_kw)
+    ctrl = (sim.cs if continuous else sim).controller
+    regs = []
+    if regression is not None:
+        ctrl.regression = RegressionSpec(*regression)
+        query = ctrl._query_regression
+
+        def recording_query(x_np, u_np):
+            out = query(x_np, u_np)
+            regs.append(torch.cat([a.flatten() for a in out]))
+            return out
+        ctrl._query_regression = recording_query
     rows = []
     for x, u in zip(fx["x_ctrl"][r], fx["u_ic"][r]):
         info = ctrl.step(x, u)
         rows.append(torch.cat([info.u_apply, info.output.obj[None],
                                info.used_fallback[None].float()]).cpu().numpy())
     rows = np.stack(rows).astype(np.float64)
-    return {"u_apply": rows[:, :-2], "obj": rows[:, -2], "used_fallback": rows[:, -1] > 0.5}
+    out = {"u_apply": rows[:, :-2], "obj": rows[:, -2], "used_fallback": rows[:, -1] > 0.5}
+    if regs:
+        flat = torch.stack(regs).cpu().numpy()
+        nx, nu = fx["dB"].shape[-2:]
+        out.update(dA=flat[:, :nx * nx].reshape(-1, nx, nx),
+                   dB=flat[:, nx * nx:nx * (nx + nu)].reshape(-1, nx, nu),
+                   dC=flat[:, nx * (nx + nu):])
+    return out
+
+
+REG_KEYS = ("dA", "dB", "dC")
+
+
+def reg_reading(a: dict, fx, r: int) -> dict:
+    """How far the regression corrections of run ``a`` lie from stored run
+    ``r``'s: the max |difference| over cycles and entries, per matrix."""
+    return {f"{k} max": float(np.abs(np.asarray(a[k], np.float64) - fx[k][r]).max())
+            for k in REG_KEYS}
+
+
+def reg_limits(fx) -> dict:
+    """Each regression gate's limit: the reference's worst reading between
+    any two of its stored runs."""
+    runs = len(fx["dA"])
+    return {f"{k} max": max(float(np.abs(fx[k][i].astype(np.float64) - fx[k][j]).max())
+                            for i in range(runs) for j in range(runs) if i != j)
+            for k in REG_KEYS}
 
 
 def held_ctrl(port: list[dict], fx, limits: dict, label: str) -> list[str]:
@@ -662,14 +772,18 @@ def held_ctrl(port: list[dict], fx, limits: dict, label: str) -> list[str]:
     return failed
 
 
-def closed_loop(device, scenario: str, steps: int):
+def closed_loop(device, scenario: str, steps: int, regression=None):
     """``steps`` lock-step cycles of the port's co-simulation of a launch
-    scenario, the launch counts set to 0 just before and read just after.
+    scenario (with the error-dynamics regression when ``regression`` is
+    given), the launch counts set to 0 just before and read just after.
     Returns the co-simulation, the launches, and per cycle the plant's
     abscissa, lateral offset and lap after the cycle."""
     import torch
+    from racing_lmpc_torch.control import RegressionSpec
     from racing_lmpc_torch.launch.runner import _SCENARIOS, CoSimulation
     cs = CoSimulation(_SCENARIOS[scenario], device=device)
+    if regression is not None:
+        cs.controller.regression = RegressionSpec(*regression)
     zero_launches()
     plant = []
     for _ in range(steps):
@@ -697,44 +811,67 @@ def closed_loop(device, scenario: str, steps: int):
     return cs, launches, fallbacks, float(np.median(ms[1:])), s, lap
 
 
-def drive_controller(device, case: str) -> tuple[dict, float, float]:
-    """The controller path of fixture ``case``: the port's closed loop,
-    checked against the stored reference runs (on the track every cycle, no
-    more fallbacks than the reference's plus its spread, the final progress
-    no farther from the nearest reference run than the reference's runs lie
-    apart, or 0.1% of the distance covered), a profiled cycle, then the
-    teacher-forced runs held to the reference's own spread.  Returns the launches, the median cycle ms and the idle
-    share of the profiled cycle."""
-    scenario, steps = CTRL_CASES[case]
-    with np.load(FIXTURE_DIR / f"{case}.npz") as z:
-        fx = {k: z[k] for k in z.files}
-    check(fx["x_ctrl"].shape[1] == steps, f"{case}: fixture has another cycle count")
-    cs, launches, fallbacks, cycle_ms, s, lap = closed_loop(device, scenario, steps)
-
+def progress_gates(case: str, fx, fallbacks: int, prog: float) -> None:
+    """The closed-loop gates against the stored reference runs: no more
+    fallbacks than the reference's first run plus its spread, and the final
+    progress ``prog`` (laps x length + abscissa) as near some reference run
+    as the reference's runs come to each other, or 0.1% of the distance
+    covered."""
     ref_fb = fx["used_fallback"].sum(axis=1)
     allowed = int(ref_fb[0] + ref_fb.max() - ref_fb.min())
     check(fallbacks <= allowed, f"{case}: {fallbacks} fallbacks, reference allows {allowed}")
-    # final progress (laps and abscissa): as near some reference run as the
-    # reference's runs come to each other (or 0.1% of the distance covered)
     L = float(fx["total_length"])
     ref_prog = fx["lap"][:, -1] * L + fx["s"][:, -1]
     covered = ref_prog[0] - float(fx["x_ctrl"][0, 0, 0])
     width = float(ref_prog.max() - ref_prog.min())
     limit = max(width, 1e-3 * abs(covered))
-    prog = float(lap[-1] * L + s[-1])
     gap = float(np.abs(ref_prog - prog).min())
     print(f"{case} closed loop: fallbacks {fallbacks} (reference {ref_fb.tolist()}, "
           f"allowed {allowed}); final progress {prog - ref_prog[0]:+.3e} m from the "
           f"reference run's, {gap:.3e} m from the nearest of its runs (they lie "
           f"{np.round(ref_prog - ref_prog[0], 4).tolist()} m from it, {covered:.2f} m "
           f"covered; limit {limit:.3e} m)", flush=True)
+    check(gap <= limit, f"{case}: final progress {gap:.3e} m from every reference run")
+
+
+def drive_controller(device, case: str) -> tuple[dict, float, float]:
+    """The controller path of fixture ``case``: the port's closed loop,
+    checked against the stored reference runs (on the track every cycle,
+    ``progress_gates``), a profiled cycle, then the teacher-forced runs held
+    to the reference's own spread (and, with the regression, each cycle's
+    dA/dB/dC to the spread between the reference's runs).  Returns the
+    launches, the median cycle ms and the idle share of the profiled
+    cycle."""
+    scenario, steps = CTRL_CASES[case]
+    regression = CTRL_REGRESSION.get(case)
+    with np.load(FIXTURE_DIR / f"{case}.npz") as z:
+        fx = {k: z[k] for k in z.files}
+    check(fx["x_ctrl"].shape[1] == steps, f"{case}: fixture has another cycle count")
+    cs, launches, fallbacks, cycle_ms, s, lap = closed_loop(device, scenario, steps, regression)
+    progress_gates(case, fx, fallbacks, float(lap[-1] * float(fx["total_length"]) + s[-1]))
     print(f"  port u_apply per cycle {[np.round(t.control, 4).tolist() for t in cs.telemetry]}",
           flush=True)
-    check(gap <= limit, f"{case}: final progress {gap:.3e} m from every reference run")
     idle = profile(cs.step, cycle_ms, f"{case} one cycle")
 
-    port = [teacher_forced(scenario, fx, r, device) for r in range(CTRL_REPLAYS[case])]
+    port = [teacher_forced(scenario, fx, r, device, regression=regression)
+            for r in range(CTRL_REPLAYS[case])]
     failed = held_ctrl(port, fx, ctrl_limits(fx), f"{case} vs reference")
+    if regression is not None:
+        limits = reg_limits(fx)
+        got = [reg_reading(p, fx, r) for r, p in enumerate(port)]
+        for k, limit in limits.items():
+            v = [g[k] for g in got]
+            med = float(np.median(v))
+            failed += [] if med <= limit else [k]
+            print(f"  {k}: median {med:.3e} (runs {min(v):.3e}..{max(v):.3e}), limit "
+                  f"{limit:.3e} (the reference's spread) {'ok' if med <= limit else 'FAILS'}",
+                  flush=True)
+        def rows(a):
+            return np.round(np.asarray(a, np.float64), 5).tolist()
+        for c in range(steps):
+            print(f"  cycle {c}: dA[4:, 3:] port {rows(port[0]['dA'][c, 4:, 3:])} reference "
+                  f"{rows(fx['dA'][0, c, 4:, 3:])}; dC[4:] port {rows(port[0]['dC'][c, 4:])} "
+                  f"reference {rows(fx['dC'][0, c, 4:])}", flush=True)
     check(not failed, f"{case}: outside the reference's own spread on {failed}")
     return launches, cycle_ms, idle
 
@@ -743,6 +880,254 @@ def drive_tracking(device, steps: int = 5) -> dict:
     """The tracking controller (no safe set: the K=0 layout) in closed
     loop: finite and on the track every cycle."""
     return closed_loop(device, "barc_tracking_mpc", steps)[1]
+
+
+def make_ekf(fx, model, device):
+    """The port's EKF configured as the fixture's, with its one full-state
+    observation, initialized at t = 0."""
+    from racing_lmpc_torch.config import EKFConfig
+    from racing_lmpc_torch.estimation import EKFStateEstimator
+    ekf = EKFStateEstimator(EKFConfig(**{k: tuple(fx[f"ekf_cfg_{k}"].tolist()) for k in
+                                         ("x0", "p0", "q", "x_max", "x_min")}),
+                            model, device=device)
+    ekf.register_observation("full_state", model.nx, lambda x, z: x)
+    ekf.initialize(0)
+    return ekf
+
+
+EKF_FIELDS = (("p", "s"), ("p", "x_tran"), ("p", "e_psi"),
+              ("v", "v_long"), ("v", "v_tran"), ("w", "w_psi"))
+
+
+def ekf_filter(cs, ekf):
+    """The state filter of the continuous path (the fixture's): every
+    controller cycle the published state plus seeded noise is one
+    observation at the message's simulated time, after the previous applied
+    control; the controller gets the estimate."""
+    rng = np.random.default_rng(EKF_SEED)
+    std = np.asarray(EKF_NOISE_STD)
+    R = np.diag(std ** 2).astype(np.float32)
+
+    def filt(msg):
+        truth = np.array([getattr(getattr(msg, a), b) for a, b in EKF_FIELDS])
+        z = truth + rng.standard_normal(6) * std
+        ekf.update_control(cs._u_prev)
+        res = ekf.update_observation("full_state", int(round(msg.t * 1e9)), z, R)
+        for (a, b), v in zip(EKF_FIELDS, res["x"].cpu().numpy().astype(np.float64)):
+            setattr(getattr(msg, a), b, v)
+        return msg
+    return filt
+
+
+def ekf_replay(fx, model, device) -> dict:
+    """The port's EKF fed the stored run's observations, controls and
+    timestamps; its estimates against the stored ones (max |dx|, and max
+    |dP| over the largest stored |P|)."""
+    ekf = make_ekf(fx, model, device)
+    R = np.diag(np.asarray(EKF_NOISE_STD) ** 2).astype(np.float32)
+    xs, Ps = [], []
+    for z, t, u in zip(fx["ekf_z"][0], fx["ekf_t_ns"][0], fx["ekf_u"][0]):
+        ekf.update_control(u)
+        res = ekf.update_observation("full_state", int(t), z, R)
+        xs.append(res["x"])
+        Ps.append(res["P"])
+    import torch
+    x = torch.stack(xs).cpu().numpy().astype(np.float64)
+    P = torch.stack(Ps).cpu().numpy().astype(np.float64)
+    return {"x max": float(np.abs(x - fx["ekf_x"][0]).max()),
+            "P max rel": float(np.abs(P - fx["ekf_P"][0]).max() / np.abs(fx["ekf_P"][0]).max())}
+
+
+def run_continuous(device, scenario: str, ticks: int, outage: tuple, fx, **cont_kw):
+    """``ticks`` plant ticks of the port's ``ContinuousCoSimulation`` of
+    ``scenario`` with the EKF in the loop and actuation dropped over
+    ``outage``, the launch counts set to 0 just before and read just after.
+    Returns the co-simulation, its summary and the launches."""
+    import torch
+    from racing_lmpc_torch.launch.runner import _SCENARIOS, ContinuousCoSimulation
+    sim = ContinuousCoSimulation(_SCENARIOS[scenario], device=device, **cont_kw)
+    sim.cs.state_filter = ekf_filter(sim.cs, make_ekf(fx, sim.cs.ctrl_model, device))
+    t0, t1 = outage
+    zero_launches()
+    summary = sim.run(ticks, actuation_gate=lambda t: not (t0 <= t < t1))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return sim, summary, read_launches()
+
+
+def continuous_gates(case: str, sim, summary: dict, ticks: int, outage: tuple, fx) -> int:
+    """The continuous path's gates: a published state every plant tick, the
+    controller cycles of the schedule, finite outputs, the car on the track
+    every tick and moving through the outage (the keepalive), and
+    ``progress_gates`` against the stored runs.  Returns the fallbacks."""
+    cs = sim.cs
+    check(summary["published_states"] == ticks == int(fx["published_states"]),
+          f"{case}: {summary['published_states']} states published in {ticks} ticks")
+    check(summary["controller_cycles"] == int(fx["controller_cycles"]),
+          f"{case}: {summary['controller_cycles']} controller cycles, the schedule has "
+          f"{int(fx['controller_cycles'])}")
+    for i, t in enumerate(cs.telemetry):
+        check(np.isfinite(t.control).all() and np.isfinite(t.cost) and np.isfinite(t.state).all(),
+              f"{case}: cycle {i} output not finite")
+    s = np.array([m.p.s for m in sim.published])
+    x_tran = np.array([m.p.x_tran for m in sim.published])
+    inside = ((x_tran <= cs.track.left_boundary_np(s)) & (x_tran >= cs.track.right_boundary_np(s)))
+    check(bool(inside.all()), f"{case}: off the track at ticks {np.flatnonzero(~inside)}")
+    # the keepalive: the plant keeps integrating on the last command
+    L = cs.track.total_length
+    ts = np.arange(ticks) * sim.sim_dt
+    ds = np.diff(s[(ts >= outage[0]) & (ts < outage[1])])
+    ds = np.where(ds < -0.5 * L, ds + L, ds)
+    check(ds.size > 0 and ds.min() > 0.0, f"{case}: the car stopped during the actuation outage")
+    fallbacks = sum(not t.solved for t in cs.telemetry)
+    progress_gates(case, fx, fallbacks, float(sim.published[-1].lap_num * L + s[-1]))
+    return fallbacks
+
+
+def drive_continuous(device, case: str) -> tuple[dict, float, float]:
+    """The continuous co-simulation path: ``run_continuous`` held by
+    ``continuous_gates``, a profiled controller cycle, and the EKF replayed
+    on the stored run's inputs.  Returns the launches, the median cycle ms
+    and the idle share of the profiled cycle."""
+    scenario, ticks, outage = CONT_CASES[case]
+    with np.load(FIXTURE_DIR / f"{case}.npz") as z:
+        fx = {k: z[k] for k in z.files}
+    sim, summary, launches = run_continuous(device, scenario, ticks, outage, fx)
+    check(launches["chol_tri_inv"] > 0, f"{case}: chol_tri_inv never launched")
+    check(launches["gj_inverse"] == 0, f"{case}: gj_inverse launched on the path")
+    fallbacks = continuous_gates(case, sim, summary, ticks, outage, fx)
+    cs = sim.cs
+    ms = np.array([t.solve_time * 1e3 for t in cs.telemetry])
+    cycle_ms = float(np.median(ms[1:]))
+    print(f"path {case}: {ticks} plant ticks of {sim.sim_dt * 1e3:.0f} ms, "
+          f"{summary['controller_cycles']} controller cycles, actuation dropped over "
+          f"[{outage[0]}, {outage[1]}) s, launches {launches}; fallbacks {fallbacks}; on the "
+          f"track every tick; cycle wall ms: first (bootstrap) {ms[0]:.1f}, median after "
+          f"{cycle_ms:.1f}", flush=True)
+    idle = profile(lambda: cs.controller_cycle(cs.vehicle_state_msg()), cycle_ms,
+                   f"{case} one controller cycle")
+    got = ekf_replay(fx, cs.ctrl_model, device)
+    print(f"{case} EKF replayed on the stored run's {len(fx['ekf_z'][0])} observations: "
+          f"state max |dx| {got['x max']:.3e} (limit {EKF_X_TOL:.0e}), covariance max |dP| "
+          f"{got['P max rel']:.3e} of its largest entry (limit {EKF_P_TOL:.0e})", flush=True)
+    check(got["x max"] <= EKF_X_TOL and got["P max rel"] <= EKF_P_TOL,
+          f"{case}: the EKF does not reproduce the stored estimates")
+    return launches, cycle_ms, idle
+
+
+def stack_problem():
+    """The control-stack case, as tests/torch_port_fixture.py builds it for
+    the reference: ``STACK_BATCH`` initial-state perturbations around the
+    LQR reference (numpy seed 0), and the BARC legacy controller of
+    tests/test_aux.py's legacy test on three initial states.  Returns numpy
+    inputs and the legacy config's fields."""
+    rng = np.random.default_rng(0)
+    pert = rng.standard_normal((STACK_BATCH, 6)) * np.array([1.0, 0.3, 0.01, 0.5, 0.05, 0.02])
+    legacy = dict(n=10, margin=0.1, average_track_width=1.0, q_contour=1.0,
+                  q_heading=1.0, q_vel=0.2, q_boundary=100.0, r=(0.01, 0.0, 0.0, 0.01),
+                  x_max=(np.inf, np.inf, np.inf, 6.0, 1.0, 3.0),
+                  x_min=(-np.inf, -np.inf, -np.inf, 0.1, -1.0, -3.0),
+                  u_max=(0.01, 0.33), u_min=(-0.01, -0.33), sqp_iters=4)
+    dt, v_ref = 0.025, 1.5
+    X_leg = np.zeros((legacy["n"], 6), np.float32)
+    X_leg[:, 0] = v_ref * dt * np.arange(legacy["n"])
+    X_leg[:, 3] = v_ref
+    x_leg = np.array([[0.0, 0.05, 0.0, 1.2, 0.0, 0.0], [0.3, -0.1, 0.05, 1.5, 0.0, 0.1],
+                      [0.1, 0.15, -0.05, 1.0, 0.05, -0.1]], np.float32)
+    return {"lqr_pert": pert.astype(np.float32), "leg_X_ref": X_leg,
+            "leg_x_ic": x_leg, "leg_dt": np.float64(dt)}, legacy
+
+
+def lqr_sample_model():
+    """The IAC-scale sample vehicle in the global frame with its three
+    controls (tests/test_lqr_ekf.py:28-38), and ``sample_lqr``'s config."""
+    import dataclasses
+    from racing_lmpc_torch import config as tc
+    from racing_lmpc_torch.models import SingleTrackPlanarModel
+    p = tc.load_ros_params(tc.PARAM_DIR / "sample_vehicle_base.param.yaml",
+                           tc.PARAM_DIR / "sample_vehicle_single_track.param.yaml")
+    base = tc.vehicle_config_from_params(p)
+    base = dataclasses.replace(base, modeling=dataclasses.replace(
+        base.modeling, use_frenet=False, integrator_type="rk4", sample_throttle=60.0))
+    model = SingleTrackPlanarModel(base, tc.single_track_config_from_params(
+        p, simplify_lon_control=False))
+    cfg = tc.lqr_config_from_params(tc.load_ros_params(tc.PARAM_DIR / "sample_lqr.param.yaml"))
+    return model, cfg
+
+
+# the bound each legacy gate keeps at the least: the controller gates' floors
+LEGACY_FLOORS = {"lon max": 1e-3, "steer max": 3e-3, "X max": 1e-3}
+
+
+def legacy_reading(U, X, U_ref, X_ref, su) -> dict:
+    """How far legacy solves (U, X over the three cases) lie from others:
+    the max |dU| / scale_u of each control and the max |dX|."""
+    dU = np.abs(np.asarray(U, np.float64) - U_ref) / su
+    return {"lon max": float(dU[..., 0].max()), "steer max": float(dU[..., 1].max()),
+            "X max": float(np.abs(np.asarray(X, np.float64) - X_ref).max())}
+
+
+def drive_stack(device) -> dict:
+    """The LQR's ``solve_batch`` at ``STACK_BATCH`` and three legacy
+    full-dynamics solves against the stored reference (``stack.npz``), each
+    with the launch counts set to 0 just before and read just after.  The
+    LQR is held within ``LQR_TOL``; the legacy solves within the
+    reference's worst reading between its stored runs from moved initial
+    states (or ``LEGACY_FLOORS``)."""
+    import torch
+    from racing_lmpc_torch import config as tc
+    from racing_lmpc_torch.control import RacingLMPCLegacy, RacingLMPCLegacyConfig
+    from racing_lmpc_torch.models import SingleTrackPlanarModel
+    from racing_lmpc_torch.mpc.racing_lqr import RacingLQR
+    from racing_lmpc_torch.track import RacingTrajectory
+    with np.load(FIXTURE_DIR / "stack.npz") as z:
+        fx = {k: z[k] for k in z.files}
+    inputs, legacy = stack_problem()
+    check(all(np.array_equal(inputs[k], fx[k]) for k in inputs), "stack: inputs differ")
+    model, cfg = lqr_sample_model()
+    lqr = RacingLQR(cfg, model, device=device)
+    B = STACK_BATCH
+    args = ((fx["lqr_X_ref"][0] + fx["lqr_pert"]).astype(np.float32),
+            np.tile(fx["lqr_X_ref"], (B, 1, 1)), np.tile(fx["lqr_U_ref"], (B, 1, 1)))
+    zero_launches()
+    sol = lqr.solve_batch(*args)
+    torch.cuda.synchronize()
+    lqr_launches = read_launches()
+    errs = {k: float((np.abs(getattr(sol, k).cpu().numpy().astype(np.float64) - fx[f"lqr_{k}"])
+                      / np.maximum(np.abs(fx[f"lqr_{k}"]), 1.0)).max())
+            for k in ("u", "U_optm", "X_optm")}
+    ms = cuda_time_ms(lambda: lqr.solve_batch(*args), reps=5, warmup=1)
+    print(f"stack: RacingLQR.solve_batch at batch {B}: launches {lqr_launches}; max rel err "
+          f"vs reference {errs} (limit {LQR_TOL:.0e}); {ms:.2f} ms a batch", flush=True)
+    check(max(errs.values()) <= LQR_TOL, f"stack: LQR differs from the reference {errs}")
+
+    track = RacingTrajectory.from_file(tc.TRACK_DIR / "barc" / "02_barc_center.txt",
+                                       device=device)
+    ctrl = RacingLMPCLegacy(RacingLMPCLegacyConfig(**legacy),
+                            SingleTrackPlanarModel(*tc.barc_vehicle()), track)
+    zero_launches()
+    t = time.perf_counter()
+    outs = [ctrl.solve(x0, fx["leg_X_ref"], np.zeros((legacy["n"] - 1, 2), np.float32),
+                       float(fx["leg_dt"])) for x0 in fx["leg_x_ic"]]
+    torch.cuda.synchronize()
+    leg_ms = (time.perf_counter() - t) * 1e3 / len(outs)
+    leg_launches = read_launches()
+    check(all(bool(o.solved) for o in outs) and bool(fx["leg_solved"].all()),
+          "stack: a legacy solve did not converge")
+    su = ctrl.mpc.scale_u
+    runs = [(fx["leg_U_optm"], fx["leg_X_optm"])] + list(zip(fx["leg_U_optm_pert"],
+                                                             fx["leg_X_optm_pert"]))
+    spread = [legacy_reading(*a, *b, su) for i, a in enumerate(runs) for b in runs[i + 1:]]
+    limits = {k: max(f, *(r[k] for r in spread)) for k, f in LEGACY_FLOORS.items()}
+    got = legacy_reading(torch.stack([o.U_optm for o in outs]).cpu().numpy(),
+                         torch.stack([o.X_optm for o in outs]).cpu().numpy(),
+                         fx["leg_U_optm"], fx["leg_X_optm"], su)
+    print(f"stack: three RacingLMPCLegacy.solve calls ({leg_ms:.1f} ms each): launches "
+          f"{leg_launches}; vs reference {got}, limits {limits}", flush=True)
+    check(all(got[k] <= limits[k] for k in limits), "stack: legacy solves outside the limits")
+    check(leg_launches["chol_tri_inv"] > 0 and leg_launches["gj_inverse"] == 0,
+          f"stack: legacy launches {leg_launches}")
+    return {"lqr": lqr_launches, "legacy": leg_launches}
 
 
 def main() -> int:
@@ -779,9 +1164,18 @@ def main() -> int:
         device, "barc_n20_k48_b256", profiled=True)
     lower_precision_control(mpc, inp, fx, limits)
     per_path["barc_n40_k96_b128"] = drive_path(device, "barc_n40_k96_b128")[0]
-    for case in CTRL_CASES:
+    for case in ("ctrl_barc_lmpc", "ctrl_putnam_short_lmpc"):
         per_path[case] = drive_controller(device, case)[0]
     per_path["barc_tracking_mpc"] = drive_tracking(device)
+    print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
+    for case in ADMM_CASES:
+        per_path[case] = drive_path(device, case, profiled=True)[0]
+    per_path["ctrl_barc_lmpc_regression"] = drive_controller(
+        device, "ctrl_barc_lmpc_regression")[0]
+    for case in CONT_CASES:
+        per_path[case] = drive_continuous(device, case)[0]
+    stack = drive_stack(device)
+    per_path["stack_lqr"], per_path["stack_legacy"] = stack["lqr"], stack["legacy"]
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     def entry(name, source, replaces, numbers):

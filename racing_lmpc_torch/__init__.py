@@ -5,9 +5,10 @@ its module names and layout so that each port module sits at the path of
 its counterpart.  Inside it is plain PyTorch: functions take tensors with an
 explicit leading batch dimension where the reference used ``vmap``, and
 Python loops where it used ``lax.scan``/``fori_loop``/``while_loop``.  The
-one TPU kernel on the solve path (``ops/pallas_linalg.py::
-chol_tri_inv_fused``) is a hand-written Hopper kernel,
-``csrc/chol_tri_inv.cu``, behind ``ops.linalg.chol_tri_inv``.
+TPU kernel of the solve paths (``ops/pallas_linalg.py::
+chol_tri_inv_fused``, the IPM's and the ADMM's KKT factorization) is a
+hand-written Hopper kernel, ``csrc/chol_tri_inv.cu``, behind
+``ops.linalg.chol_tri_inv``.
 
 Numerics policy (asserted by ``chip_smoke.py``): f32 everywhere, and every
 f32 matmul at full precision (no TF32) — the reference runs every solve at

@@ -24,8 +24,11 @@ Port of ``racing_lmpc_tpu/control/loop.py`` (parity target
 Everything of the cycle runs on the controller's device (CUDA unless the
 caller names one); the safe-set query and the lap recorder run on the host
 between shift and solve, as the reference queries its safe set inside
-``RacingMPC::solve``.  The error-dynamics regression (``RegressionSpec``)
-is not ported: a controller asked for one raises.
+``RacingMPC::solve``.  With a ``RegressionSpec`` the cycle also makes one
+multi-group error-dynamics regression query around the current state and
+control (``SafeSetManager.query_regression``: the prediction sweep on the
+device, the fit on the host), whose (dA, dB, dC) enter the cycle's
+``MPCInput`` (``loop.py:45-57``, ``:424-453``).
 """
 
 from __future__ import annotations
@@ -40,8 +43,19 @@ from racing_lmpc_torch import resolve_device
 from racing_lmpc_torch.config import RacingMPCConfig
 from racing_lmpc_torch.models.base import VehicleModel
 from racing_lmpc_torch.mpc.racing_mpc import MPCInput, MPCOutput, RacingMPC
-from racing_lmpc_torch.safeset import SafeSetManager, SafeSetRecorder
+from racing_lmpc_torch.safeset import RegQuery, SafeSetManager, SafeSetRecorder
 from racing_lmpc_torch.track.trajectory import RacingTrajectory
+
+
+class RegressionSpec(NamedTuple):
+    """Opt-in local error-dynamics regression (arXiv:2309.10716 §III-B;
+    ``loop.py:45-57``): each group fits the one-step prediction error of ONE
+    output state from selected state/control inputs around the current
+    operating point; the (dA, dB, dC) corrections enter the stage
+    linearization, constant over the horizon."""
+    dist_max: float
+    # each group: (in_state_idxs, in_control_idxs, out_state_idx)
+    groups: tuple
 
 
 class ControllerState(NamedTuple):
@@ -63,15 +77,13 @@ class MPCController:
     def __init__(self, config: RacingMPCConfig, model: VehicleModel,
                  track: RacingTrajectory, dt: float,
                  safe_set_query: Callable | None = None,
-                 regression=None, device=None):
-        if regression is not None:
-            raise NotImplementedError(
-                "the safe-set error-dynamics regression is not ported yet")
+                 regression: RegressionSpec | None = None, device=None):
         self.device = resolve_device(device)
         self.config = config
         self.model = model
         self.track = track
         self.dt = dt
+        self.regression = regression
         self._dt = torch.tensor(dt, dtype=torch.float32, device=self.device)
         self.mpc = RacingMPC(config, model, device=self.device)
         self.safe_set_query = safe_set_query
@@ -92,7 +104,8 @@ class MPCController:
         self._ss_loaded = False
         self._time = 0.0
         if config.learning and safe_set_query is None:
-            self.ss_manager = SafeSetManager(config.max_lap_stored, nx=model.nx)
+            self.ss_manager = SafeSetManager(config.max_lap_stored, nx=model.nx,
+                                             nu=model.nu)
             self.ss_recorder = SafeSetRecorder(
                 self.ss_manager, to_file=config.record,
                 file_prefix=config.path_prefix)
@@ -131,10 +144,11 @@ class MPCController:
     # ------------------------------------------------------------------
     def build_step_input(self, x_ic: Tensor, u_ic: Tensor,
                          state: ControllerState, ss_x: Tensor, ss_j: Tensor,
-                         speed_limit: Tensor, speed_scale: Tensor
+                         speed_limit: Tensor, speed_scale: Tensor, regs=None
                          ) -> tuple[MPCInput, Tensor, Tensor]:
         """Shift the previous plan and assemble this cycle's solver input
-        (racing_mpc_node.cpp:236-292).  Returns (inp, z_warm, dU_ref)."""
+        (racing_mpc_node.cpp:236-292), with the regression's (dA, dB, dC)
+        when ``regs`` carries them.  Returns (inp, z_warm, dU_ref)."""
         mpc = self.mpc
         N, nu = mpc.N, mpc.nu
         # continuous mode: predict one step ahead with the in-flight command
@@ -152,7 +166,8 @@ class MPCController:
             T_ref=self._dt.expand(N - 1).clone(),
             bound_left=bl, bound_right=br,
             total_length=self._f32(self.track.total_length),
-            curvatures=curv, vel_ref=vel_ref, ss_x=ss_x, ss_j=ss_j)
+            curvatures=curv, vel_ref=vel_ref, ss_x=ss_x, ss_j=ss_j,
+            **({} if regs is None else dict(zip(("dA", "dB", "dC"), regs))))
         z_warm = mpc.warm_start_vector(X_ref, U_ref, dU_ref, state.lam)
         return inp, z_warm, dU_ref
 
@@ -199,10 +214,10 @@ class MPCController:
 
     def _rti_step(self, x_ic: Tensor, u_ic: Tensor, state: ControllerState,
                   ss_x: Tensor, ss_j: Tensor, speed_limit: Tensor,
-                  speed_scale: Tensor) -> tuple[ControllerState, StepInfo]:
+                  speed_scale: Tensor, regs=None) -> tuple[ControllerState, StepInfo]:
         mpc = self.mpc
         inp, z_warm, dU_ref = self.build_step_input(
-            x_ic, u_ic, state, ss_x, ss_j, speed_limit, speed_scale)
+            x_ic, u_ic, state, ss_x, ss_j, speed_limit, speed_scale, regs)
         if self.config.sqp_relin_steps > 1:
             out = self._sqp_solve(inp, z_warm, speed_limit, speed_scale)
         else:
@@ -317,7 +332,29 @@ class MPCController:
             self.bootstrap(x_ic)
         # safe-set query at the (to-be-shifted) terminal point
         ss_x, ss_j = self._query_safe_set(self.state.last_X[-1])
+        regs = self._query_regression(x_np, u_np)
         self.state, info = self._rti_step(
             x_ic, u_ic, self.state, ss_x, ss_j, self._f32(self.speed_limit),
-            self._f32(self.speed_scale))
+            self._f32(self.speed_scale), regs)
         return info
+
+    def _query_regression(self, x_np: np.ndarray, u_np: np.ndarray):
+        """This cycle's error-dynamics regression around the current state and
+        previous control: (dA, dB, dC) as f32 tensors on the controller's
+        device, or None when the regression is off or no lap is stored."""
+        if (self.regression is None or self.ss_manager is None
+                or self.ss_manager.num_laps == 0):
+            return None
+        nx, nu = self.model.nx, self.model.nu
+        groups = self.regression.groups
+        # ONE multi-group query: the prediction sweep runs once per cycle
+        res = self.ss_manager.query_regression(RegQuery(
+            x=tuple(np.concatenate([x_np[list(in_x)], u_np[list(in_u)]])
+                    for in_x, in_u, _ in groups),
+            dist_max=self.regression.dist_max,
+            reg_in_state_idxs=tuple(tuple(g[0]) for g in groups),
+            reg_in_control_idxs=tuple(tuple(g[1]) for g in groups),
+            reg_out_state_idxs=tuple((g[2],) for g in groups),
+            A=np.zeros((nx, nx)), B=np.zeros((nx, nu)), C=np.zeros(nx),
+            f=self.model.discrete_dynamics), device=self.device)
+        return tuple(self._f32(a) for a in res)

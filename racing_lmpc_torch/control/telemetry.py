@@ -1,18 +1,50 @@
-"""Cycle profiling and diagnostics.
+"""Cycle profiling, diagnostics and logging.
 
-Port of ``racing_lmpc_tpu/control/telemetry.py:51-101`` (plain Python,
+Port of ``racing_lmpc_tpu/control/telemetry.py:21-101`` (plain Python,
 copied): ``CycleProfiler`` is the thread-safe circular window of per-cycle
 measurements of ``lmpc_utils/cycle_profiler.hpp:33-136`` with its
-min/mean/max ``Profile`` and diagnostic status.  The reference's ``Logger``
-has no caller on a ported path and is not ported; its ``XprofTrace`` wraps
-``jax.profiler`` and has no counterpart here.
+min/mean/max ``Profile`` and diagnostic status; ``Logger`` is the
+callback-registry logger of ``lmpc_utils/logging.hpp:42-96``, the EKF's
+warning sink.  The reference's ``XprofTrace`` wraps ``jax.profiler`` and has
+no counterpart here.
 """
 
 from __future__ import annotations
 
+import enum
 import threading
 from collections import deque
 from dataclasses import dataclass
+from typing import Callable
+
+
+class LogLevel(enum.IntEnum):
+    DEBUG = 10
+    INFO = 20
+    WARN = 30
+    ERROR = 40
+    FATAL = 50
+
+
+class Logger:
+    """Callback-registry logger (Logger, logging.hpp:42-96)."""
+
+    def __init__(self):
+        self._callbacks: list[Callable[[LogLevel, str], None]] = []
+
+    def register_callback(self, cb: Callable[[LogLevel, str], None]):
+        self._callbacks.append(cb)
+
+    def send_log(self, level: LogLevel, message: str):
+        for cb in self._callbacks:
+            cb(level, message)
+
+    @staticmethod
+    def print_sink(min_level: LogLevel = LogLevel.INFO):
+        def sink(level: LogLevel, message: str):
+            if level >= min_level:
+                print(f"[{level.name}] {message}")
+        return sink
 
 
 @dataclass

@@ -1,21 +1,25 @@
 """In-process co-simulation of the reference's launch scenarios.
 
 Port of ``racing_lmpc_tpu/launch/runner.py`` (``ScenarioSpec``, the five
-``_SCENARIOS``, ``CoSimulation`` and the ``sim_*`` factories; parity target
+``_SCENARIOS``, ``CoSimulation``, ``ContinuousCoSimulation``, the ``sim_*``
+factories and the command line; parity target
 ``racing_lmpc_launch/launch/{barc,putnam}/*.launch.py``): a simulator in
 the global frame and an MPC controller in the Frenet frame, exchanging the
-reference's messages in lock step ("step" co-simulation mode), with the
-per-step global <-> Frenet conversions of the two nodes
-(racing_simulator_node.cpp:266-284, racing_mpc_node.cpp:180-186).  The
-controller and the plant run on one device (CUDA unless the caller names
-one); the state message and its Frenet projection are built on the host.
+reference's messages in lock step ("step" co-simulation mode) or on a
+simulated clock (continuous mode), with the per-step global <-> Frenet
+conversions of the two nodes (racing_simulator_node.cpp:266-284,
+racing_mpc_node.cpp:180-186).  The controller and the plant run on one
+device (CUDA unless the caller names one); the state message and its
+Frenet projection are built on the host.
 
-Not ported yet: ``ContinuousCoSimulation``, ``BusCoSimulation`` (the native
-bus) and the command-line ``main``.
+Run e.g.:  python -m racing_lmpc_torch.launch.runner barc_lmpc --steps 400
+
+Not ported yet: ``BusCoSimulation`` (it needs the native bus).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import time
@@ -271,6 +275,87 @@ class CoSimulation:
         Path(path).write_text(json.dumps([t.to_dict() for t in self.telemetry]))
 
 
+class ContinuousCoSimulation:
+    """Continuous-mode co-simulation on a simulated clock
+    (``runner.py:313-398``).
+
+    The reference's continuous mode runs both nodes on timers: the simulator
+    integrates and publishes ``vehicle_state`` every sim tick, and keeps
+    publishing when no actuation arrives (racing_simulator_node.cpp:125-129
+    and the keepalive :172-189), while the MPC node solves on its own period
+    and compensates the actuation delay (x_ic advanced one step with the
+    in-flight command, ``u[delay_step]`` applied; racing_mpc_node.cpp:
+    114-118,386-402).  Here one plant tick runs every ``sim_dt`` (0.01 s,
+    continuous_simulator.param.yaml) and one controller cycle whenever the
+    simulated clock reaches the next multiple of ``spec.dt`` (an
+    accumulator: 25 ms over 10 ms ticks), its command taking effect on the
+    next tick.  ``actuation_gate(t) -> bool`` simulates actuation loss:
+    while it is False the command is dropped and the plant keeps flying the
+    last one.
+    """
+
+    def __init__(self, spec: ScenarioSpec, sim_dt: float = 0.01,
+                 n_override: int | None = None, mpc_overrides: dict | None = None,
+                 device=None):
+        ov = dict(mpc_overrides or {})
+        ov["step_mode"] = "continuous"
+        self.cs = CoSimulation(spec, n_override=n_override, mpc_overrides=ov,
+                               device=device)
+        self.sim_dt = sim_dt
+        self.ctrl_dt = spec.dt
+        self._next_ctrl_t = 0.0
+        # the continuous-mode delay pick (1) comes from the config's -1
+        # (auto); an explicit config value is honoured as it is
+        self.cs.simulator = RacingSimulator(
+            SimulatorConfig(dt=sim_dt, x0=spec.x0_global, step_mode="continuous"),
+            self.cs.sim_model, self.cs.track, device=self.cs.simulator.device)
+        self.act: VehicleActuationMsg | None = None
+        self.published: list[VehicleStateMsg] = []
+        self._tick = 0
+
+    def _plant_tick(self) -> VehicleStateMsg:
+        """One sim integration + state publish at the sim rate
+        (racing_simulator_node.cpp:240-332, lap counting :266-284)."""
+        cs = self.cs
+        act = self.act or VehicleActuationMsg(t=cs._t, u_a=0.0, u_steer=0.0)
+        cs.simulator.step([max(act.u_a, 0.0), min(act.u_a, 0.0), act.u_steer])
+        msg = cs.vehicle_state_msg()
+        s_now = msg.p.s
+        if cs._last_s is not None and cs._last_s - s_now > 0.5 * cs.track.total_length:
+            cs.lap_num += 1
+            if cs._lap_start_t > 0.0 or cs.lap_num > 1:
+                cs.lap_times.append(cs._t - cs._lap_start_t)
+            cs._lap_start_t = cs._t
+        cs._last_s = s_now
+        cs._t += self.sim_dt
+        self.published.append(msg)
+        return msg
+
+    def run(self, sim_steps: int, actuation_gate=None) -> dict:
+        cs = self.cs
+        msg = cs.vehicle_state_msg()
+        for _ in range(sim_steps):
+            if cs._t >= self._next_ctrl_t - 1e-9:
+                self._next_ctrl_t += self.ctrl_dt
+                act = cs.controller_cycle(msg)
+                if actuation_gate is None or actuation_gate(cs._t):
+                    self.act = act
+                # else: actuation lost; the plant keeps flying the last
+                # command and keeps publishing (keepalive)
+            msg = self._plant_tick()
+            self._tick += 1
+        prof = cs.profiler.profile()
+        return {
+            "laps": cs.lap_num,
+            "lap_times": cs.lap_times,
+            "published_states": len(self.published),
+            "controller_cycles": len(cs.telemetry),
+            "fallback_rate": float(np.mean(
+                [not t.solved for t in cs.telemetry])) if cs.telemetry else 0.0,
+            "solve_time": {"min": prof.min, "mean": prof.mean, "max": prof.max},
+        }
+
+
 def _make(name: str, **kw) -> CoSimulation:
     return CoSimulation(_SCENARIOS[name], **kw)
 
@@ -293,3 +378,27 @@ def sim_putnam_short_tracking_mpc(**kw) -> CoSimulation:
 
 def sim_putnam_config_a_tracking_mpc(**kw) -> CoSimulation:
     return _make("putnam_config_a_tracking_mpc", **kw)
+
+
+def main(argv=None):
+    """The runner's command line (``runner.py:517-534``), with ``--device``
+    (CUDA by default, as every entry point of the port)."""
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("scenario", choices=sorted(_SCENARIOS))
+    p.add_argument("--steps", type=int, default=400)
+    p.add_argument("--horizon", type=int, default=None,
+                   help="override the MPC horizon N")
+    p.add_argument("--telemetry-out", type=str, default=None)
+    p.add_argument("--log-every", type=int, default=40)
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: cuda)")
+    args = p.parse_args(argv)
+    cosim = _make(args.scenario, n_override=args.horizon, device=args.device)
+    summary = cosim.run(args.steps, log_every=args.log_every)
+    if args.telemetry_out:
+        cosim.export_telemetry(args.telemetry_out)
+    print(json.dumps(summary, indent=2))
+
+
+if __name__ == "__main__":
+    main()

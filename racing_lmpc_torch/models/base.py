@@ -84,6 +84,28 @@ class VehicleModel:
         return integrate(self.dynamics, x, u, k, dt,
                          method=self.base_config.modeling.integrator_type)
 
+    def _forward_jacobian(self, fn, x: Tensor, u: Tensor):
+        """(fn(x, u), d fn/dx, d fn/du) by forward mode over any leading batch
+        shape: jacfwd is vmap-over-jvp of the basis tangents, each pushed
+        through the whole batch at once; vmapping the batch instead
+        (per-sample jacfwd) would make 0-d intermediates, whose forward-mode
+        tangents PyTorch 2.13 promotes to float64."""
+        nx, nu = x.shape[-1], u.shape[-1]
+
+        def column(t):
+            return torch.func.jvp(fn, (x, u), (t[:nx].expand_as(x), t[nx:].expand_as(u)))
+
+        eye = torch.eye(nx + nu, dtype=x.dtype, device=x.device)
+        y, J = torch.func.vmap(column, out_dims=(None, 0))(eye)
+        J = torch.movedim(J, 0, -1)                      # (..., ny, nx + nu)
+        return y, J[..., :nx], J[..., nx:]
+
+    def dynamics_jacobian(self, x: Tensor, u: Tensor, k: Tensor) -> tuple[Tensor, Tensor]:
+        """Continuous-time (A, B) = (df/dx, df/du) by forward mode
+        (``base.py:106-110``), over any leading batch shape."""
+        _, A, B = self._forward_jacobian(lambda xx, uu: self.dynamics(xx, uu, k), x, u)
+        return A, B
+
     def discrete_dynamics_jacobian(
         self, x: Tensor, u: Tensor, k: Tensor, dt: Tensor
     ) -> tuple[Tensor, Tensor, Tensor]:
@@ -95,21 +117,8 @@ class VehicleModel:
         makes ``A x + B u + g`` the exact value of the integrator at the
         linearization point.
         """
-        nx, nu = self.nx, self.nu
-
-        def column(t):
-            # one forward-mode tangent of the integrator, over the whole batch
-            return torch.func.jvp(
-                lambda xx, uu: self.discrete_dynamics(xx, uu, k, dt), (x, u),
-                (t[:nx].expand_as(x), t[nx:].expand_as(u)))
-
-        # jacfwd is vmap-over-jvp of the basis tangents; vmapping the batch
-        # instead (per-sample jacfwd) would make 0-d intermediates, whose
-        # forward-mode tangents PyTorch 2.13 promotes to float64
-        eye = torch.eye(nx + nu, dtype=x.dtype, device=x.device)
-        xn, J = torch.func.vmap(column, out_dims=(None, 0))(eye)
-        J = torch.movedim(J, 0, -1)                      # (..., nx, nx + nu)
-        A, B = J[..., :nx], J[..., nx:]
+        xn, A, B = self._forward_jacobian(
+            lambda xx, uu: self.discrete_dynamics(xx, uu, k, dt), x, u)
         g = (xn - torch.matmul(A, x.unsqueeze(-1))[..., 0]
              - torch.matmul(B, u.unsqueeze(-1))[..., 0])
         return A, B, g

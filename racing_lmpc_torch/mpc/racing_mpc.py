@@ -1,20 +1,19 @@
 """Racing MPC: batched condensed real-time-iteration MPC and safe-set LMPC.
 
 Port of ``racing_lmpc_tpu/mpc/racing_mpc.py`` (``_Layout``, ``MPCInput``,
-``MPCOutput``, ``RacingMPC.__init__``, ``_condense``, ``_rate_map``,
-``_build_qp``, the IPM branch of ``_solve_impl`` and ``_extract``).  Every
-input carries a leading batch dimension B, and ``solve_batch`` is the
-counterpart of the reference's ``jax.jit(jax.vmap(_solve_impl))``.  See the
-reference module for the derivation of the condensing (states eliminated
-through the LQR-pre-stabilized chain, controls and rates affine in the
-decision vector) and of every row block.
+``MPCOutput``, ``RacingMPC.__init__``, ``_condense`` with the regression
+corrections, ``_rate_map``, ``_build_qp``, both QP backends of
+``_solve_impl`` and ``_extract``).  Every input carries a leading batch
+dimension B, and ``solve_batch`` is the counterpart of the reference's
+``jax.jit(jax.vmap(_solve_impl))``.  See the reference module for the
+derivation of the condensing (states eliminated through the
+LQR-pre-stabilized chain, controls and rates affine in the decision vector)
+and of every row block.
 
 ``solve`` (one problem), ``solve_sqp`` (the bootstrap's SQP loop),
 ``warm_start_vector`` and ``create_warm_start`` are ported for the
-controller cycle (``:669-773``).  Not ported yet: the ADMM branch, the
-nonlinear model-constraint rows (no model of the port has any) and the
-safe-set regression corrections ``dA/dB/dC``, which no launch scenario
-passes (``carry.mpc_input_from_arrays`` raises on them).
+controller cycle (``:669-773``).  Not ported yet: the nonlinear
+model-constraint rows (no model of the port has any).
 """
 
 from __future__ import annotations
@@ -30,8 +29,8 @@ from racing_lmpc_torch import resolve_device
 from racing_lmpc_torch.config import RacingMPCConfig
 from racing_lmpc_torch.models.base import VehicleModel
 from racing_lmpc_torch.mpc.ipm import solve_qp_ip
-from racing_lmpc_torch.mpc.qp import QPData, QPSolution, mv
-from racing_lmpc_torch.ops.linalg import solve_small
+from racing_lmpc_torch.mpc.qp import QPData, QPSolution, mv, solve_qp
+from racing_lmpc_torch.ops.linalg import solve_small, tri_inv_lower
 from racing_lmpc_torch.ops.math import align_abscissa
 
 # fixed diagonal variable scaling (racing_mpc.cpp:36-37)
@@ -54,6 +53,21 @@ class MPCInput(NamedTuple):
     vel_ref: Tensor       # (B, N)
     ss_x: Tensor          # (B, K, nx)  padded safe-set states (zeros if unused)
     ss_j: Tensor          # (B, K)     padded relative cost-to-go
+    # optional error-dynamics corrections from the safe-set regression
+    # (SafeSetManager.query_regression): additive on the stage
+    # linearization, constant over the horizon
+    dA: Tensor | None = None    # (B, nx, nx)
+    dB: Tensor | None = None    # (B, nx, nu)
+    dC: Tensor | None = None    # (B, nx)
+
+
+# the fields every input carries; dA/dB/dC may be None
+REQUIRED_FIELDS = MPCInput._fields[:12]
+
+
+def map_input(fn, inp: MPCInput) -> MPCInput:
+    """``fn`` applied to every field of ``inp`` that is not None."""
+    return MPCInput(*(None if a is None else fn(a) for a in inp))
 
 
 class MPCOutput(NamedTuple):
@@ -135,9 +149,8 @@ class RacingMPC:
         if model.n_nl:
             raise NotImplementedError(
                 "nonlinear model-constraint rows are not ported yet")
-        if config.qp_method != "ipm":
-            raise NotImplementedError(
-                f"qp_method={config.qp_method!r}: only the IPM is ported")
+        if config.qp_method not in ("ipm", "admm"):
+            raise ValueError(f"qp_method={config.qp_method!r}: 'ipm' or 'admm'")
         self.config = config
         self.model = model
         nx, nu, N = model.nx, model.nu, config.n
@@ -261,6 +274,13 @@ class RacingMPC:
 
         As, Bs, gs = self.model.discrete_dynamics_jacobian(
             inp.X_ref[:, :-1], inp.U_ref, inp.curvatures[:, :-1], inp.T_ref)
+        if inp.dA is not None:
+            # data-driven error-dynamics correction: the corrected model
+            # f(x, u) + dA x + dB u + dC linearizes at the reference to
+            # (A + dA, B + dB, g + dC) (``racing_mpc.py:321-327``)
+            As = As + inp.dA[:, None]
+            Bs = Bs + inp.dB[:, None]
+            gs = gs + inp.dC[:, None]
         Bs_s = Bs * su                           # absorb control scale
 
         # backward Riccati for the pre-stabilizing gains (scaled controls,
@@ -447,14 +467,32 @@ class RacingMPC:
         return QPData(P=P, q=q, A=A, l=lo, u=up), (F, f, MU, mu0, Gm, gm)
 
     # ------------------------------------------------------------------
-    def _solve_impl(self, inp: MPCInput) -> tuple[MPCOutput, Tensor]:
+    def _solve_impl(self, inp: MPCInput, z_warm: Tensor, warm_valid: Tensor
+                    ) -> tuple[MPCOutput, Tensor]:
         data, aux = self._build_qp(inp)
         cfg = self.config
-        # interior point restarts from the central path; no warm start
-        sol = solve_qp_ip(data, eq_rows=self.eq_rows, iters=cfg.qp_ip_iters,
-                          struct=self.qp_struct,
-                          zoom_rounds=cfg.qp_zoom_rounds,
-                          zoom_iters=cfg.qp_zoom_iters or None)
+        if cfg.qp_method == "ipm":
+            # interior point restarts from the central path; the warm start
+            # is not used
+            sol = solve_qp_ip(data, eq_rows=self.eq_rows, iters=cfg.qp_ip_iters,
+                              struct=self.qp_struct,
+                              zoom_rounds=cfg.qp_zoom_rounds,
+                              zoom_iters=cfg.qp_zoom_iters or None)
+        else:
+            # the warm start packs scaled controls ubar = MU v + mu0; map it
+            # to the decision variable v through MU^-1 (block-unit-lower-
+            # triangular), with the reference's plain blocked inverse
+            # (``racing_mpc.py:598-616``); lanes without a valid warm start
+            # start from zero
+            _, _, MU, mu0, _, _ = aux
+            nuu = self.layout.nuu
+            v0 = mv(tri_inv_lower(MU), z_warm[:, :nuu] - mu0)
+            x0 = torch.where(warm_valid[:, None],
+                             torch.cat([v0, z_warm[:, nuu:]], dim=-1),
+                             torch.zeros_like(z_warm))
+            sol = solve_qp(data, iters=cfg.qp_iters, rho=cfg.qp_rho,
+                           sigma=cfg.qp_sigma, alpha=cfg.qp_alpha,
+                           do_polish=cfg.qp_polish, x0=x0)
         out = self._extract(sol, aux)
         # the returned warm-start vector carries SCALED CONTROLS (ubar =
         # U/su) in the leading block, as the reference's does
@@ -484,21 +522,34 @@ class RacingMPC:
             obj=sol.obj, solved=solved, rp_rel=sol.rp_rel, rd_rel=sol.rd_rel)
 
     # ------------------------------------------------------------------
-    def solve_batch(self, inp: MPCInput) -> tuple[MPCOutput, Tensor]:
+    def solve_batch(self, inp: MPCInput, z_warm: Tensor | None = None,
+                    warm_valid: Tensor | None = None) -> tuple[MPCOutput, Tensor]:
         """Solve a batch of problems (leading dimension B on every input) on
-        this MPC's device.  Returns (output, warm-start vectors (B, n))."""
-        return self._solve_impl(MPCInput(*(
-            torch.as_tensor(a, dtype=torch.float32).to(self.device) for a in inp)))
+        this MPC's device, each lane warm-started from ``z_warm`` (B, n)
+        where ``warm_valid`` (B,) holds (the ADMM backend's start; none by
+        default).  Returns (output, warm-start vectors (B, n))."""
+        inp = map_input(lambda a: torch.as_tensor(a, dtype=torch.float32).to(self.device), inp)
+        B = inp.x_ic.shape[0]
+        if z_warm is None:
+            z_warm = inp.x_ic.new_zeros((B, self.layout.n))
+            warm_valid = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        z_warm = torch.as_tensor(z_warm, dtype=torch.float32).to(self.device)
+        warm_valid = torch.as_tensor(warm_valid, dtype=torch.bool).to(self.device)
+        return self._solve_impl(inp, z_warm, warm_valid)
 
     def solve(self, inp: MPCInput, z_warm: Tensor | None = None
               ) -> tuple[MPCOutput, Tensor]:
         """One RTI solve: ``inp`` without the batch dimension.  Returns the
         output and the warm-start vector for the next call (scaled controls
         in the leading block, as ``warm_start_vector`` packs them).  The
-        interior point method restarts from the central path, so ``z_warm``
-        is accepted for the reference's signature and not used, as there."""
-        one = MPCInput(*(torch.as_tensor(a)[None] for a in inp))
-        out, z = self.solve_batch(one)
+        ADMM backend starts from ``z_warm`` when it is given; the interior
+        point method restarts from the central path and does not use it."""
+        one = map_input(lambda a: torch.as_tensor(a)[None], inp)
+        if z_warm is None:
+            out, z = self.solve_batch(one)
+        else:
+            out, z = self.solve_batch(one, torch.as_tensor(z_warm)[None],
+                                      torch.ones((1,), dtype=torch.bool))
         return MPCOutput(*(a[0] for a in out)), z[0]
 
     def _rollout(self, inp: MPCInput, U: Tensor) -> Tensor:
@@ -516,8 +567,7 @@ class RacingMPC:
         of the current controls and re-solve, damping each control update
         by alpha = 0.5; the output carries the damped controls and their
         rollout."""
-        inp = MPCInput(*(torch.as_tensor(a, dtype=torch.float32).to(self.device)
-                         for a in inp))
+        inp = map_input(lambda a: torch.as_tensor(a, dtype=torch.float32).to(self.device), inp)
         out, z = self.solve(inp)
         U = out.U_optm
         for _ in range(iters - 1):

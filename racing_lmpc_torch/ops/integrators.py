@@ -1,4 +1,5 @@
-"""Fixed-step integrators (port of ``racing_lmpc_tpu/ops/integrators.py:23-47``).
+"""Fixed-step integrators and exact discretization (port of
+``racing_lmpc_tpu/ops/integrators.py``).
 
 ``dt`` is a tensor of the state's batch shape (one step length per state, or
 a 0-d tensor inside ``torch.func.vmap``); it broadcasts over the state axis.
@@ -8,6 +9,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import torch
 from torch import Tensor
 
 # dynamics(x, u, k) -> x_dot, where k is the local track curvature
@@ -39,3 +41,22 @@ def integrate(
     if method == "euler":
         return euler(dynamics, x, u, k, dt)
     raise ValueError(f"unsupported integrator type: {method}")
+
+
+def c2d(Ac: Tensor, Bc: Tensor, dt) -> tuple[Tensor, Tensor]:
+    """Exact continuous -> discrete conversion of (A, B) over any leading
+    batch shape, via the augmented matrix exponential
+    ``expm([[A, B], [0, 0]] * dt)``; mirrors ``lmpc::utils::c2d_function``
+    (utils.cpp:52-65).
+
+    ``torch.linalg.matrix_exp`` is a different approximant from the
+    reference's Pade-13 ``expm`` (both scale and square), so the two agree
+    to about 1e-6 relative in f32, not bit for bit.
+    """
+    nx, nu = Ac.shape[-1], Bc.shape[-1]
+    top = torch.cat([Ac, Bc], dim=-1)
+    bottom = Ac.new_zeros(Ac.shape[:-2] + (nu, nx + nu))
+    M = torch.cat([top, bottom], dim=-2)
+    dt = torch.as_tensor(dt, dtype=Ac.dtype, device=Ac.device)
+    eM = torch.linalg.matrix_exp(M * dt[..., None, None])
+    return eM[..., :nx, :nx], eM[..., :nx, nx:]

@@ -1,6 +1,8 @@
-"""Safe set of the port: the LMPC terminal-constraint data structure."""
+"""Safe set of the port: the LMPC terminal-constraint data structure and
+the error-dynamics regression."""
 
 from racing_lmpc_torch.safeset.safe_set import (
-    SafeSetManager, SafeSetRecorder, SSQuery, SSResult)
+    RegQuery, RegResult, SafeSetManager, SafeSetRecorder, SSQuery, SSResult)
 
-__all__ = ["SafeSetManager", "SafeSetRecorder", "SSQuery", "SSResult"]
+__all__ = ["SafeSetManager", "SafeSetRecorder", "SSQuery", "SSResult",
+           "RegQuery", "RegResult"]

@@ -1,10 +1,14 @@
-"""Safe set for LMPC: stored laps, cost-to-go and k-nearest query.
+"""Safe set for LMPC: stored laps, cost-to-go, k-nearest query and the
+local error-dynamics regression.
 
 Port of the numpy path of ``racing_lmpc_tpu/safeset/safe_set.py``
-(``SafeSetManager.add_lap``/``query``/``query_padded``, ``:75-209``, and
-``SafeSetRecorder``, ``:301-369``).  The reference's native C++ k-NN is
-not bound here; the query is the reference's numpy fallback.  The
-error-dynamics regression (``query_regression``) waits for a later slice.
+(``SafeSetManager``, ``:75-298``, and ``SafeSetRecorder``, ``:301-369``).
+The reference's native C++ k-NN is not bound here; the query is the
+reference's numpy fallback.  ``query_regression`` runs its one-step
+prediction sweep over every stored point batched through the model's
+discrete dynamics on the port's device in f32 (as the reference does under
+``jax.vmap``), and its Epanechnikov-weighted least squares in float64 numpy
+on the host.
 
 Replicated semantics (safe_set.cpp): cost-to-go J = [T-1 .. 0],
 abscissa-tripled states (x - L, x, x + L) with J offsets for periodic
@@ -16,9 +20,12 @@ closes a lap when the abscissa wraps (drops by more than half the track).
 from __future__ import annotations
 
 from pathlib import Path
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
+import torch
+
+from racing_lmpc_torch import resolve_device
 
 
 class SSQuery(NamedTuple):
@@ -34,17 +41,43 @@ class SSResult(NamedTuple):
     J: np.ndarray            # (num,)
 
 
+class RegQuery(NamedTuple):
+    """Mirrors ``RegQuery`` (safe_set.hpp:57-76)."""
+    x: np.ndarray                         # query point in (x_sel, u_sel) space
+    dist_max: float
+    reg_in_state_idxs: Sequence[Sequence[int]]
+    reg_in_control_idxs: Sequence[Sequence[int]]
+    reg_out_state_idxs: Sequence[Sequence[int]]
+    A: np.ndarray                          # nominal A (nx, nx)
+    B: np.ndarray                          # nominal B (nx, nu)
+    C: np.ndarray                          # nominal affine offset (nx,)
+    # discrete dynamics f(x, u, k, dt) -> x+ on tensors with a leading batch
+    f: Callable
+
+
+class RegResult(NamedTuple):
+    A: np.ndarray
+    B: np.ndarray
+    C: np.ndarray
+
+
 class SafeSetManager:
     """Ring buffer of stored laps in fixed-size padded host arrays."""
 
-    def __init__(self, max_laps: int, nx: int = 6, pad_len: int = 2048):
+    def __init__(self, max_laps: int, nx: int = 6, nu: int = 2, pad_len: int = 2048):
         self.max_laps = max_laps
-        self.nx = nx
+        self.nx, self.nu = nx, nu
         self.pad = pad_len
         # tripled arrays for the periodic query
         self.x_rep = np.zeros((max_laps, 3 * pad_len, nx), dtype=np.float32)
         self.J_rep = np.zeros((max_laps, 3 * pad_len), dtype=np.float32)
         self.valid_rep = np.zeros((max_laps, 3 * pad_len), dtype=bool)
+        # raw per-lap data for the regression
+        self.x_raw = np.zeros((max_laps, pad_len, nx), dtype=np.float32)
+        self.u_raw = np.zeros((max_laps, pad_len, nu), dtype=np.float32)
+        self.k_raw = np.zeros((max_laps, pad_len), dtype=np.float32)
+        self.dt_raw = np.zeros((max_laps, pad_len), dtype=np.float32)
+        self.valid_raw = np.zeros((max_laps, pad_len), dtype=bool)
         self._next_slot = 0
         self.num_laps = 0
         # slot order, newest first
@@ -55,8 +88,8 @@ class SafeSetManager:
                 t: np.ndarray, total_length: float):
         """Store one lap (x: (T, nx) rows = steps; u, k, t its controls,
         curvatures and times).  Mirrors ``SSTrajectory::process_lap_data``
-        (safe_set.cpp:116-137).  The query reads the states only; u, k and t
-        feed the regression, which is not ported yet."""
+        (safe_set.cpp:116-137); the raw lap is kept for the regression with
+        forward-difference step lengths (``safe_set.py:150-158``)."""
         x = np.asarray(x, dtype=np.float32)
         T = x.shape[0]
         for name, a in (("u", u), ("k", k), ("t", t)):
@@ -85,6 +118,18 @@ class SafeSetManager:
             self.x_rep[slot, lo:lo + T] = x_rep[i * T:(i + 1) * T]
             self.J_rep[slot, lo:lo + T] = J_rep[i * T:(i + 1) * T]
             self.valid_rep[slot, lo:lo + T] = True
+
+        self.valid_raw[slot].fill(False)
+        self.x_raw[slot, :T] = x
+        self.u_raw[slot, :T] = np.asarray(u, dtype=np.float32)
+        self.k_raw[slot, :T] = np.asarray(k, dtype=np.float32).reshape(-1)
+        # forward differences (positive dt, what the prediction f(x, u, k,
+        # dt) needs), the last one repeated; the reference's C++ stores
+        # negative backward differences (see the reference module)
+        t = np.asarray(t, dtype=np.float32).reshape(-1)
+        dt = np.diff(t)
+        self.dt_raw[slot, :T] = np.concatenate([dt, dt[-1:]]) if dt.size else np.zeros(T)
+        self.valid_raw[slot, :T] = True
 
     # ------------------------------------------------------------------
     def query(self, query: SSQuery) -> SSResult:
@@ -129,6 +174,79 @@ class SafeSetManager:
             x = np.concatenate([x, np.repeat(x[-1:], reps, axis=0)], axis=0)
             J = np.concatenate([J, np.repeat(J[-1:], reps)])
         return x, J - J[0], True
+
+
+    # ------------------------------------------------------------------
+    def query_regression(self, query: RegQuery, device=None) -> RegResult:
+        """Local error-dynamics regression (SafeSetManager::query(RegQuery),
+        safe_set.cpp:182-245; ``safe_set.py:212-298``).
+
+        Each group fits the one-step prediction error of its one OUTPUT state
+        ``y = x+_data[out] - f(x, u)[out]`` from the selected (state, control)
+        features with Epanechnikov weights around ``query.x`` (one point for
+        every group, or one per group).  A recorded control produced its
+        state, so the control flown over [t_i, t_i+1) is the successor's
+        (``np.roll(u, -1)``), and a point counts only if its successor is
+        stored too.  The correction is the POSITIVE fit, the reference's
+        deliberate sign (its docstring gives why).  The prediction sweep runs
+        on ``device`` (CUDA unless the caller names one) in f32; the fit in
+        float64 on the host.
+        """
+        A = np.array(query.A, dtype=np.float64, copy=True)
+        B = np.array(query.B, dtype=np.float64, copy=True)
+        C = np.array(query.C, dtype=np.float64, copy=True)
+        if self.num_laps == 0:
+            return RegResult(A, B, C)
+        device = resolve_device(device)
+
+        slots = self._order
+        valid = self.valid_raw[slots]              # (L, P)
+        x_all = self.x_raw[slots].astype(np.float64)
+        u_next = np.roll(self.u_raw[slots], -1, axis=1).astype(np.float64)
+        k_all = self.k_raw[slots].astype(np.float64)
+        dt_all = self.dt_raw[slots].astype(np.float64)
+        xip1_all = np.roll(x_all, -1, axis=1)
+        # a point is usable if it AND its successor are valid (xip1, u_next)
+        has_next = np.zeros_like(valid)
+        has_next[:, :-1] = valid[:, :-1] & valid[:, 1:]
+
+        # the one-step prediction at every stored point, once per query
+        def dev(a, *shape):
+            return torch.as_tensor(a.reshape(*shape), dtype=torch.float32, device=device)
+        with torch.no_grad():
+            f_pred = query.f(dev(x_all, -1, self.nx), dev(u_next, -1, self.nu),
+                             dev(k_all, -1), dev(dt_all, -1))
+        f_pred = f_pred.cpu().numpy().astype(np.float64).reshape(x_all.shape)
+
+        per_group_x = isinstance(query.x, (list, tuple))
+        for gi, out_i in enumerate(query.reg_out_state_idxs):
+            in_x = list(query.reg_in_state_idxs[gi])
+            in_u = list(query.reg_in_control_idxs[gi])
+            out_i = list(out_i)
+            if len(out_i) != 1:
+                raise ValueError(
+                    "Only one state variable is supported in every regression")
+            xs = x_all[:, :, in_x]
+            us = u_next[:, :, in_u]
+            z = np.concatenate([xs, us], axis=-1)          # (L, P, d)
+            qx = query.x[gi] if per_group_x else query.x
+            dists = np.sqrt(np.sum((z - np.asarray(qx, dtype=np.float64)) ** 2, axis=-1))
+            mask = has_next & (dists < query.dist_max)
+            if not mask.any():
+                continue
+            y = xip1_all[:, :, out_i[0]] - f_pred[:, :, out_i[0]]  # (L, P)
+            K = np.where(mask, 0.75 / query.dist_max
+                         * (1.0 - (dists / query.dist_max) ** 2) ** 2, 0.0)
+            M = np.concatenate([xs, us, np.ones((*xs.shape[:2], 1))], axis=-1)
+            Mf = M.reshape(-1, M.shape[-1])
+            Kf = K.reshape(-1)
+            Q = Mf.T @ (Kf[:, None] * Mf) + 1e-3 * np.eye(Mf.shape[1])
+            R = np.linalg.solve(Q, Mf.T @ (Kf * y.reshape(-1)))
+            nsx = len(in_x)
+            A[np.ix_(out_i, in_x)] += R[:nsx]
+            B[np.ix_(out_i, in_u)] += R[nsx:-1]
+            C[out_i[0]] += R[-1]
+        return RegResult(A, B, C)
 
 
 class SafeSetRecorder:

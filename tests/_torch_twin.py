@@ -248,13 +248,26 @@ def replay_instance(rec, d, replicas: int, gates: dict):
 def controller_case(case: str) -> tuple[dict, dict]:
     """The port's controller fed the first stored reference run of ``case``
     (teacher forcing, on the CPU), read against that run with
-    ``chip_smoke.py``'s controller gates.  Returns (reading, limits)."""
+    ``chip_smoke.py``'s controller gates (and its regression gates where
+    the case runs the error-dynamics regression; a continuous co-simulation
+    case of ``CONT_CASES`` builds the controller in continuous mode).
+    Returns (reading, limits)."""
     import chip_smoke
     from tests import torch_port_fixture as tf
-    scenario, steps, moved, kw = tf.CTRL_CASES[case]
+    if case in tf.CONT_CASES:
+        scenario, ticks, moved, _, kw = tf.CONT_CASES[case]
+        kw = {**kw, "continuous": True}
+    else:
+        scenario, steps, moved, kw = tf.CTRL_CASES[case]
     with np.load(tf.fixture_path(case)) as z:
         fx = {k: z[k] for k in z.files}
-    assert fx["x_ctrl"].shape[:2] == (moved + 1, steps)
+    assert len(fx["x_ctrl"]) == moved + 1
+    if case in tf.CTRL_CASES:
+        assert fx["x_ctrl"].shape[1] == steps
     port = chip_smoke.teacher_forced(scenario, fx, 0, "cpu", **kw)
     reading = chip_smoke.ctrl_reading(port, chip_smoke.ctrl_runs(fx)[0], fx["scale_u"])
-    return reading, chip_smoke.ctrl_limits(fx)
+    limits = chip_smoke.ctrl_limits(fx)
+    if "dA" in fx:
+        reading.update(chip_smoke.reg_reading(port, fx, 0))
+        limits.update(chip_smoke.reg_limits(fx))
+    return reading, limits

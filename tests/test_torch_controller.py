@@ -115,11 +115,25 @@ def test_safe_set_query_layouts():
 
 
 def test_controller_refuses_the_regression():
+    """The regression is ported (tests/test_torch_regression.py): the
+    controller takes a ``RegressionSpec``, the reference's own type
+    included; what the port refuses, as the reference does
+    (``safe_set.py:256-258``), is a regression group with more than one
+    output state."""
+    from racing_lmpc_torch.safeset import RegQuery
     model = SingleTrackPlanarModel(*tc.barc_vehicle())
     tmap = RacingTrajectoryMap(tc.TRACK_DIR / "barc", device="cpu")
-    with pytest.raises(NotImplementedError):
-        MPCController(tc.barc_mpc_config(n=N), model, tmap.get_trajectory(2), 0.025,
-                      regression=RegressionSpec(0.5, (((1,), (0,), 1),)), device="cpu")
+    ctrl = MPCController(tc.barc_mpc_config(n=N), model, tmap.get_trajectory(2), 0.025,
+                         regression=RegressionSpec(0.5, (((1,), (0,), 1),)), device="cpu")
+    assert ctrl.regression.dist_max == 0.5
+    x = np.zeros((40, 6))
+    x[:, 0] = np.linspace(0.0, 2.0, 40)
+    ctrl.ss_manager.add_lap(x, np.zeros((40, 2)), np.zeros(40), 0.025 * np.arange(40), 17.0)
+    with pytest.raises(ValueError):
+        ctrl.ss_manager.query_regression(RegQuery(
+            x=np.zeros(2), dist_max=1.0, reg_in_state_idxs=[[1]], reg_in_control_idxs=[[0]],
+            reg_out_state_idxs=[[1, 2]], A=np.zeros((6, 6)), B=np.zeros((6, 2)),
+            C=np.zeros(6), f=model.discrete_dynamics), device="cpu")
 
 
 def test_cycle_profiler_matches_jax():

@@ -135,3 +135,68 @@ def test_gj_inverse_kernel_ties_and_limits(cuda):
         tl.gj_inverse(torch.zeros(1, 65, 65, device=cuda))
     with pytest.raises(TypeError):
         tl.gj_inverse(torch.zeros(1, 8, 8, device=cuda, dtype=torch.float64))
+
+
+def random_qps(rng, B, n, m):
+    """A batch of strictly convex QPs with two-sided inequality rows."""
+    M = rng.normal(size=(B, n, n))
+    P = np.einsum("bij,bkj->bik", M, M) + n * np.eye(n)
+    return [a.astype(np.float32) for a in (
+        P, rng.normal(size=(B, n)), rng.normal(size=(B, m, n)),
+        -rng.uniform(0.1, 1.0, (B, m)), rng.uniform(0.1, 1.0, (B, m)))]
+
+
+def test_admm_solve_qp_on_card_matches_cpu(cuda):
+    from racing_lmpc_torch.mpc.qp import QPData, solve_qp
+    arrays = random_qps(np.random.default_rng(3), 16, 20, 30)
+    sols = {}
+    for dev in ("cpu", cuda):
+        sols[str(dev)] = solve_qp(QPData(*(torch.as_tensor(a, device=dev) for a in arrays)),
+                                  iters=400)
+    cpu, gpu = sols["cpu"], sols[str(cuda)]
+    # well-conditioned QPs: both paths converge to the optimum, to within
+    # the ADMM's own f32 accuracy
+    assert rel_err(np_of(gpu.x), np_of(cpu.x)) < 1e-4
+    assert rel_err(np_of(gpu.obj), np_of(cpu.obj)) < 1e-4
+    assert np.array_equal(np_of(gpu.rp_rel) < 1e-3, np_of(cpu.rp_rel) < 1e-3)
+
+
+def test_admm_solve_launches_chol_tri_inv_six_times(cuda):
+    # rho_updates + 1 = 5 chunks, each factoring its KKT matrix, + the polish
+    from racing_lmpc_torch.mpc.qp import QPData, solve_qp
+    arrays = random_qps(np.random.default_rng(4), 8, 12, 18)
+    data = QPData(*(torch.as_tensor(a, device=cuda) for a in arrays))
+    before = tl.chol_tri_inv.launches
+    solve_qp(data, iters=400)
+    torch.cuda.synchronize()
+    assert tl.chol_tri_inv.launches == before + 6
+    solve_qp(data, iters=400, do_polish=False)
+    assert tl.chol_tri_inv.launches == before + 11
+
+
+def test_regression_sweep_on_card_matches_host(cuda):
+    from racing_lmpc_torch import config as tc
+    from racing_lmpc_torch.benchmarks import BARC_LAPS
+    from racing_lmpc_torch.models import SingleTrackPlanarModel
+    from racing_lmpc_torch.safeset import RegQuery, SafeSetManager, SafeSetRecorder
+    from racing_lmpc_torch.track import RacingTrajectory
+    track = RacingTrajectory.from_file(tc.TRACK_DIR / "barc" / "02_barc_center.txt",
+                                       device="cpu")
+    manager = SafeSetManager(3, nx=6, nu=2)
+    SafeSetRecorder(manager).load(BARC_LAPS, track.total_length)
+    model = SingleTrackPlanarModel(*tc.barc_vehicle())
+    groups = (((3, 4, 5), (0, 1), 4), ((3, 4, 5), (0, 1), 5))
+    x, u = np.array([2.0, 0.1, 0.0, 1.8, 0.05, 0.3]), np.array([0.004, 0.05])
+    query = RegQuery(
+        x=tuple(np.concatenate([x[list(a)], u[list(b)]]) for a, b, _ in groups),
+        dist_max=3.0, reg_in_state_idxs=[g[0] for g in groups],
+        reg_in_control_idxs=[g[1] for g in groups], reg_out_state_idxs=[(g[2],) for g in groups],
+        A=np.zeros((6, 6)), B=np.zeros((6, 2)), C=np.zeros(6), f=model.discrete_dynamics)
+    host = manager.query_regression(query, device="cpu")
+    card = manager.query_regression(query, device=cuda)
+    # the one-step predictions in f32 on either device; the least squares in
+    # float64 on the host (the reference's own spread between runs moved by
+    # one f32 rounding is 4e-4 on dA)
+    for a, b in zip(card, host):
+        assert np.abs(a - b).max() < 1e-4
+    assert np.abs(card.A[:4]).max() == 0.0 and np.abs(card.A[4:]).sum() > 0.0

@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from racing_lmpc_torch.mpc.racing_mpc import MPCInput
+from racing_lmpc_torch.mpc.racing_mpc import map_input
 from tests._torch_twin import (
     barc_pair, certified_controls, np_of, rel_err, scenario_pair)
 
@@ -60,12 +60,12 @@ def test_each_lane_equals_lane_solved_alone():
     _, inp = scenario_pair(N, K, BATCH, SEED)
     out, _ = mpc.solve_batch(inp)
     for b in range(BATCH):
-        copies, _ = mpc.solve_batch(MPCInput(*(a[[b] * BATCH] for a in inp)))
+        copies, _ = mpc.solve_batch(map_input(lambda a: a[[b] * BATCH], inp))
         assert bool(copies.solved[0]) == bool(out.solved[b])
         for f in ("X_optm", "U_optm", "dU_optm", "convex_combi", "obj"):
             assert rel_err(np_of(getattr(copies, f))[0],
                            np_of(getattr(out, f))[b]) < 1e-5, (b, f)
     # the unbatched entry point runs the same solve on a batch of one
-    single, z = mpc.solve(MPCInput(*(a[0] for a in inp)))
+    single, z = mpc.solve(map_input(lambda a: a[0], inp))
     assert single.U_optm.shape == (N - 1, mpc.nu) and z.shape == (mpc.layout.n,)
     assert bool(single.solved)
