@@ -50,6 +50,21 @@
    filtering noisy observations), with the port's EKF replayed on the
    stored run's observations; the LQR at batch 256 and three legacy
    full-dynamics solves against the stored ones.
+6. The nonlinear-row models: the kinematic bicycle (power and drive/brake
+   exclusivity rows) and the double-track (four friction ellipses, power,
+   exclusivity, v >= 0), their rows linearized into every QP.  The
+   kinematic power scenario (``solve_sqp``, N=14) and the double-track
+   braking scenario (``solve_sqp``, N=10), each within its test's gates and
+   breaking them without the rows; the double-track braking scenario as a
+   batch of 256 drawn lanes (N=20) held to the reference's spread over its
+   9 stored runs; the kinematic (N=10, 60 cycles) and double-track (N=25,
+   the first 20 of the test's 150 cycles) closed loops of
+   tests/test_closed_loop.py within the test's gates, each with 5
+   teacher-forced replays held to the reference's spread.
+
+The teacher-forced replays of every controller path run after all the
+timed phases, side by side in processes of their own on the same card
+(``settle_replays``), and are held to the reference then.
 
 Every path is driven with every launch counter set to 0 just before and
 read just after.  Prints one ``{"kernels": [...]}`` line, and as its last
@@ -210,9 +225,17 @@ def kernel_phase(device) -> dict:
     cases.append(("wide spectrum, Jacobi-scaled",
                   (wide * d[:, :, None] * d[:, None, :]).astype(np.float32), False))
     cases.append(("Schur block, controller", spd_batch(rng, 1, 1), True))
-    # the panel edges: whole panels, one pivot into a new panel, the last
-    # variant (its last panel holds 2 of 4 row tiles) and the limit
-    for n in (32, 64, 96, 97, 225, 240):
+    # the nonlinear-row paths' sizes, each inside one or two panels
+    sizes = nl_qp_sizes()
+    cases.append(("H, double-track batch N=20", spd_batch(rng, 256, sizes["nl_double_track_b256"]),
+                  True))
+    cases.append(("H, double-track controller N=25",
+                  spd_batch(rng, 1, sizes["ctrl_double_track"]), True))
+    # the panel edges: whole panels, one pivot either side of the first
+    # panel's end, one pivot into a new panel, the last variant (its last
+    # panel holds 2 of 4 row tiles) and the limit; and every size of the
+    # nonlinear-row paths
+    for n in sorted({31, 32, 33, 64, 96, 97, 225, 240, *sizes.values()}):
         cases.append((f"panel edge n={n}", spd_batch(rng, 4, n), False))
     main = None
     for name, Hn, timed in cases:
@@ -520,6 +543,19 @@ def runs_like_reference(mpc, inp, fx, first=None) -> list[dict]:
                               for s in range(len(fx["U_pert"]))]
 
 
+def held(got: list[dict], limits: dict) -> list[str]:
+    """The median of each gate's readings over the port's runs held to its
+    limit; prints them and returns the gates that fail."""
+    failed = []
+    for k, limit in limits.items():
+        v = [g[k] for g in got]
+        med = float(np.median(v))
+        failed += [] if med <= limit else [k]
+        print(f"  {k}: median {med:.3e} (runs {min(v):.3e}..{max(v):.3e}), limit "
+              f"{limit:.3e} {'ok' if med <= limit else 'FAILS'}", flush=True)
+    return failed
+
+
 def held_to_reference(runs: list[dict], fx, limits: dict, label: str) -> list[str]:
     """Each gate reads every run against the reference's run on the same
     input (its spread) and against the certified optimum (its error); the
@@ -531,15 +567,7 @@ def held_to_reference(runs: list[dict], fx, limits: dict, label: str) -> list[st
     print(f"{label}, {len(runs)} runs on the reference's inputs: solved "
           f"{[int(r['solved'].sum()) for r in runs]} of {B} (reference "
           f"{[int(r['solved'].sum()) for r in ref]})", flush=True)
-    failed = []
-    for k, limit in limits.items():
-        v = [g[k] for g in got]
-        med = float(np.median(v))
-        ok = med <= limit
-        failed += [] if ok else [k]
-        print(f"  {k}: median {med:.3e} (runs {min(v):.3e}..{max(v):.3e}), limit "
-              f"{limit:.3e} {'ok' if ok else 'FAILS'}", flush=True)
-    return failed
+    return held(got, limits)
 
 
 def load_batch_fixture(case: str) -> dict:
@@ -667,7 +695,7 @@ def ctrl_reading(a: dict, b: dict, su: np.ndarray) -> dict:
     steer = du[:, -1] if len(du) else np.zeros(1)
     return {"fallback where reference solved":
                 int((a["used_fallback"] & ~b["used_fallback"]).sum()),
-            "lon max": float(du[:, 0].max(initial=0.0)),
+            "lon max": float(du[:, :-1].max(initial=0.0)),
             "steer p50": float(np.percentile(steer, 50)),
             "steer p90": float(np.percentile(steer, 90)),
             "objective max": float(dobj.max(initial=0.0))}
@@ -690,6 +718,20 @@ def ctrl_limits(fx) -> dict:
                 for j, b in enumerate(runs) if i != j]
     return {k: max(floor, *(r[k] for r in readings))
             for k, floor in CTRL_FLOORS.items()}
+
+
+def replay(ctrl, fx, r: int) -> dict:
+    """Controller ``ctrl`` fed stored run ``r``'s per-cycle states and
+    previous controls: per cycle its applied control, objective and whether
+    it fell back."""
+    import torch
+    rows = []
+    for x, u in zip(fx["x_ctrl"][r], fx["u_ic"][r]):
+        info = ctrl.step(x, u)
+        rows.append(torch.cat([info.u_apply, info.output.obj[None],
+                               info.used_fallback[None].float()]).cpu().numpy())
+    rows = np.stack(rows).astype(np.float64)
+    return {"u_apply": rows[:, :-2], "obj": rows[:, -2], "used_fallback": rows[:, -1] > 0.5}
 
 
 def teacher_forced(scenario: str, fx, r: int, device, regression=None,
@@ -717,13 +759,7 @@ def teacher_forced(scenario: str, fx, r: int, device, regression=None,
             regs.append(torch.cat([a.flatten() for a in out]))
             return out
         ctrl._query_regression = recording_query
-    rows = []
-    for x, u in zip(fx["x_ctrl"][r], fx["u_ic"][r]):
-        info = ctrl.step(x, u)
-        rows.append(torch.cat([info.u_apply, info.output.obj[None],
-                               info.used_fallback[None].float()]).cpu().numpy())
-    rows = np.stack(rows).astype(np.float64)
-    out = {"u_apply": rows[:, :-2], "obj": rows[:, -2], "used_fallback": rows[:, -1] > 0.5}
+    out = replay(ctrl, fx, r)
     if regs:
         flat = torch.stack(regs).cpu().numpy()
         nx, nu = fx["dB"].shape[-2:]
@@ -731,6 +767,62 @@ def teacher_forced(scenario: str, fx, r: int, device, regression=None,
                    dB=flat[:, nx * nx:nx * (nx + nu)].reshape(-1, nx, nu),
                    dC=flat[:, nx * (nx + nu):])
     return out
+
+
+# per-cycle arrays of the controller fixtures (run axis first, cycle axis
+# second), cut to a prefix where the card drives fewer cycles
+CYCLE_KEYS = ("x_ctrl", "u_ic", "u_apply", "obj", "used_fallback", "s", "x_tran",
+              "lap", "dA", "dB", "dC", "x_plant")
+# processes the teacher-forced replays run in, side by side (8 host cores)
+REPLAY_WORKERS = 7
+
+
+def ctrl_fixture(case: str) -> dict:
+    """A controller fixture cut to the cycles the card drives
+    (``CTRL_CASES``, ``MODEL_CTRL_DEPTH``): a prefix of the stored runs.  A
+    closed loop of ``MODEL_CTRL_CASES`` has one controller step more than
+    plant steps (its first step bootstraps before the plant moves)."""
+    fx = load_fixture(case)
+    rows = MODEL_CTRL_DEPTH[case] + 1 if case in MODEL_CTRL_CASES else CTRL_CASES[case][1]
+    out = dict(fx)
+    for k in CYCLE_KEYS:
+        if k in fx:
+            out[k] = fx[k][:, :rows - 1 if k == "x_plant" else rows]
+    return out
+
+
+def replay_job(case: str, r: int) -> dict:
+    """Teacher-forced replay ``r`` of controller fixture ``case`` on the card,
+    in a process of its own (``replays``)."""
+    import torch
+    import racing_lmpc_torch  # noqa: F401  (sets the numerics policy)
+    device = torch.device("cuda", 0)
+    fx = ctrl_fixture(case)
+    if case in MODEL_CTRL_CASES:
+        return replay(model_controller(case, device, n=int(fx["n"]))[0], fx, r)
+    return teacher_forced(CTRL_CASES[case][0], fx, r, device,
+                          regression=CTRL_REGRESSION.get(case))
+
+
+def settle_replays(pending: list[tuple]) -> None:
+    """Every controller path's teacher-forced replays, after the timed
+    phases: ``pending`` holds (case, replays, check) per path.  The replays
+    run side by side in ``REPLAY_WORKERS`` processes of their own on the
+    same card (a batch-1 cycle leaves the card idle ~90% of the time, so
+    they overlap on the host; their launches are not counted), the longest
+    paths first; then each path's ``check`` holds its runs to the
+    reference.  Every process has ended when this returns."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    jobs = [(case, r) for case, count, _ in pending for r in range(count)]
+    t = time.perf_counter()
+    with ProcessPoolExecutor(REPLAY_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        done = dict(zip(jobs, pool.map(replay_job, *zip(*jobs))))
+    print(f"replays: {len(jobs)} teacher-forced runs in {REPLAY_WORKERS} processes, "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    for case, count, check_runs in pending:
+        check_runs([done[(case, r)] for r in range(count)])
 
 
 REG_KEYS = ("dA", "dB", "dC")
@@ -761,15 +853,7 @@ def held_ctrl(port: list[dict], fx, limits: dict, label: str) -> list[str]:
     print(f"{label}, {len(port)} teacher-forced runs: fallbacks "
           f"{[int(p['used_fallback'].sum()) for p in port]} (reference "
           f"{fx['used_fallback'].sum(axis=1)[:len(port)].tolist()})", flush=True)
-    failed = []
-    for k, limit in limits.items():
-        v = [g[k] for g in got]
-        med = float(np.median(v))
-        ok = med <= limit
-        failed += [] if ok else [k]
-        print(f"  {k}: median {med:.3e} (runs {min(v):.3e}..{max(v):.3e}), limit "
-              f"{limit:.3e} {'ok' if ok else 'FAILS'}", flush=True)
-    return failed
+    return held(got, limits)
 
 
 def closed_loop(device, scenario: str, steps: int, regression=None):
@@ -834,46 +918,38 @@ def progress_gates(case: str, fx, fallbacks: int, prog: float) -> None:
     check(gap <= limit, f"{case}: final progress {gap:.3e} m from every reference run")
 
 
-def drive_controller(device, case: str) -> tuple[dict, float, float]:
+def drive_controller(device, case: str) -> tuple[dict, float, float, tuple]:
     """The controller path of fixture ``case``: the port's closed loop,
     checked against the stored reference runs (on the track every cycle,
-    ``progress_gates``), a profiled cycle, then the teacher-forced runs held
-    to the reference's own spread (and, with the regression, each cycle's
-    dA/dB/dC to the spread between the reference's runs).  Returns the
-    launches, the median cycle ms and the idle share of the profiled
-    cycle."""
+    ``progress_gates``) and a profiled cycle.  Returns the launches, the
+    median cycle ms, the idle share of the profiled cycle and the path's
+    teacher-forced replays for ``settle_replays``: held to the reference's
+    own spread (and, with the regression, each cycle's dA/dB/dC to the
+    spread between the reference's runs)."""
     scenario, steps = CTRL_CASES[case]
     regression = CTRL_REGRESSION.get(case)
-    with np.load(FIXTURE_DIR / f"{case}.npz") as z:
-        fx = {k: z[k] for k in z.files}
-    check(fx["x_ctrl"].shape[1] == steps, f"{case}: fixture has another cycle count")
+    fx = ctrl_fixture(case)
+    check(fx["x_ctrl"].shape[1] == steps, f"{case}: fixture has fewer cycles")
     cs, launches, fallbacks, cycle_ms, s, lap = closed_loop(device, scenario, steps, regression)
     progress_gates(case, fx, fallbacks, float(lap[-1] * float(fx["total_length"]) + s[-1]))
     print(f"  port u_apply per cycle {[np.round(t.control, 4).tolist() for t in cs.telemetry]}",
           flush=True)
     idle = profile(cs.step, cycle_ms, f"{case} one cycle")
 
-    port = [teacher_forced(scenario, fx, r, device, regression=regression)
-            for r in range(CTRL_REPLAYS[case])]
-    failed = held_ctrl(port, fx, ctrl_limits(fx), f"{case} vs reference")
-    if regression is not None:
-        limits = reg_limits(fx)
-        got = [reg_reading(p, fx, r) for r, p in enumerate(port)]
-        for k, limit in limits.items():
-            v = [g[k] for g in got]
-            med = float(np.median(v))
-            failed += [] if med <= limit else [k]
-            print(f"  {k}: median {med:.3e} (runs {min(v):.3e}..{max(v):.3e}), limit "
-                  f"{limit:.3e} (the reference's spread) {'ok' if med <= limit else 'FAILS'}",
-                  flush=True)
-        def rows(a):
-            return np.round(np.asarray(a, np.float64), 5).tolist()
-        for c in range(steps):
-            print(f"  cycle {c}: dA[4:, 3:] port {rows(port[0]['dA'][c, 4:, 3:])} reference "
-                  f"{rows(fx['dA'][0, c, 4:, 3:])}; dC[4:] port {rows(port[0]['dC'][c, 4:])} "
-                  f"reference {rows(fx['dC'][0, c, 4:])}", flush=True)
-    check(not failed, f"{case}: outside the reference's own spread on {failed}")
-    return launches, cycle_ms, idle
+    def held_replays(port):
+        failed = held_ctrl(port, fx, ctrl_limits(fx), f"{case} vs reference")
+        if regression is not None:
+            got = [reg_reading(p, fx, r) for r, p in enumerate(port)]
+            failed += held(got, reg_limits(fx))
+
+            def rows(a):
+                return np.round(np.asarray(a, np.float64), 5).tolist()
+            for c in range(steps):
+                print(f"  cycle {c}: dA[4:, 3:] port {rows(port[0]['dA'][c, 4:, 3:])} reference "
+                      f"{rows(fx['dA'][0, c, 4:, 3:])}; dC[4:] port {rows(port[0]['dC'][c, 4:])} "
+                      f"reference {rows(fx['dC'][0, c, 4:])}", flush=True)
+        check(not failed, f"{case}: outside the reference's own spread on {failed}")
+    return launches, cycle_ms, idle, (case, CTRL_REPLAYS[case], held_replays)
 
 
 def drive_tracking(device, steps: int = 5) -> dict:
@@ -1130,6 +1206,423 @@ def drive_stack(device) -> dict:
     return {"lqr": lqr_launches, "legacy": leg_launches}
 
 
+# ---------------------------------------------------------------------------
+# the nonlinear-row paths: the kinematic-bicycle and double-track models with
+# their linearized constraint rows (tests/test_nl_constraints.py,
+# tests/test_closed_loop.py:145-219), as tests/torch_port_fixture.py builds
+# them for the reference
+# ---------------------------------------------------------------------------
+
+# nl_kinematic: BARC kinematic bicycle, P_max lowered to 1.2 W so the power
+# row binds; an aggressive speed ramp solved by solve_sqp
+NL_KIN = {"n": 14, "sqp_iters": 6, "x_ic": (0.5, 0.0, 0.0, 1.6), "v0": 1.6,
+          "v_target": 3.2, "dt": 0.025}
+# the double-track braking hard into Putnam's tightest corner: batch-1 SQP at
+# the JAX test's N=10, and a batch of lanes whose initial states are drawn
+# around the test's (abscissa +-5 m, lateral +-0.5 m, speed 45-60 m/s)
+NL_DT = {"n": 10, "sqp_iters": 8, "free_iters": 6, "v0": 55.0, "v_target": 15.0,
+         "dt": 0.04, "before_corner": 10.0}
+NL_DT_BATCH = {"n": 20, "batch": 256, "seed": 5, "ds": 5.0, "dpy": 0.5,
+               "v": (45.0, 60.0)}
+# the nl fixture's moved re-runs: x_ic and X_ref scaled by 1 + 2e-7 N(0, 1)
+# from seed 1 + s, as ``moved`` reproduces them
+NL_MOVED = 4
+# the nl batch's: eight, as the batched paths' (the median over 9 runs)
+NL_BATCH_MOVED = 8
+# the bound each nl gate keeps at the least, as the batched and controller
+# gates' floors: 2 lanes, the longitudinal controls and the states 1e-3 of
+# their scales, steering 3e-3, the objective 1e-3 relative, the
+# friction-ellipse residual 1e-3
+NL_SQP_FLOORS = {"U lon max": 1e-3, "U steer max": 3e-3, "X max": 1e-3}
+NL_BATCH_FLOORS = {"solved differs": 2, "lon max": 1e-3, "steer p50": 3e-3,
+                   "steer p90": 3e-3, "objective max": 1e-3, "ellipse max": 1e-3}
+# the closed loops of tests/test_closed_loop.py:145-219: case -> (model,
+# horizon, controller dt, the test's cycles after the first, initial state),
+# as tests/torch_port_fixture.py stores them
+MODEL_CTRL_CASES = {
+    "ctrl_kinematic": ("kinematic", 10, 0.025, 60, (0.1, 0.05, 0.0, 1.0)),
+    "ctrl_double_track": ("double_track", 25, 0.01, 150, (0.1, 0.05, 0.0, 0.0, 0.0, 1.0)),
+}
+# the cycles the card drives: the double-track's cut to fit the script's
+# time (its host time a cycle is ~3x the kinematic's)
+MODEL_CTRL_DEPTH = {"ctrl_kinematic": 60, "ctrl_double_track": 20}
+MODEL_CTRL_REPLAYS = 5
+# the JAX tests' closed-loop gates: fallbacks, max |lateral offset|, final speed
+MODEL_CTRL_GATES = {"fallbacks": 5, "lat": 0.2, "speed": 1.0}
+
+
+def nl_problem(kind: str, n: int, device, free: bool = False):
+    """(model, track, mpc) of a nonlinear-row scenario: the BARC kinematic
+    bicycle with P_max = 1.2 W on the BARC track, or the sample vehicle's
+    double-track on Putnam, each with its test's tracking config.  ``free``
+    drops the model's constraint rows (the load-bearing control)."""
+    from racing_lmpc_torch import config as tc
+    from racing_lmpc_torch.models import DoubleTrackPlanarModel, KinematicBicycleModel
+    from racing_lmpc_torch.mpc.racing_mpc import RacingMPC
+    from racing_lmpc_torch.track import RacingTrajectory
+    no_box = dict(x_min=(), x_max=(), u_min=(), u_max=())
+    if kind == "kinematic":
+        p = tc.load_ros_params(tc.PARAM_DIR / "barc_base.param.yaml",
+                               tc.PARAM_DIR / "barc_single_track.param.yaml")
+        model = KinematicBicycleModel(tc.vehicle_config_from_params(p),
+                                      tc.single_track_config_from_params(
+                                          p, simplify_lon_control=False, p_max=1.2))
+        track_file = tc.TRACK_DIR / "barc" / "02_barc_center.txt"
+        eye3 = tuple(np.eye(3).ravel() * 0.01)
+        cfg = tc.barc_mpc_config("barc_tracking_mpc", n=n, learning=False,
+                                 r=eye3, r_d=eye3, q_vel=8.0, **no_box)
+    else:
+        p = tc.load_ros_params(tc.PARAM_DIR / "sample_vehicle_base.param.yaml",
+                               tc.PARAM_DIR / "sample_vehicle_double_track.param.yaml")
+        model = DoubleTrackPlanarModel(tc.vehicle_config_from_params(p),
+                                       tc.double_track_config_from_params(p))
+        track_file = tc.TRACK_DIR / "putnam" / "10_putnam_optm.txt"
+        eye3 = tuple((np.eye(3) * np.array([1e-7, 1e-7, 0.05])).ravel())
+        cfg = tc.barc_mpc_config("iac_car_tracking_mpc", n=n, learning=False,
+                                 r=eye3, r_d=eye3, q_vel=20.0, q_boundary=1000.0,
+                                 q_contour=50.0, q_heading=20.0, **no_box)
+    if free:
+        model.n_nl = 0
+    track = RacingTrajectory.from_file(track_file, device=device)
+    return model, track, RacingMPC(cfg, model, device=device)
+
+
+def nl_reference(N: int, x_ic, v0: float, v_target: float, dt: float):
+    """The horizon of tests/test_nl_constraints.py's ``_mk_input``: the
+    abscissae of a speed ramp v0 -> v_target from x_ic, and the speeds."""
+    vels = np.linspace(v0, v_target, N)
+    s_hor = float(x_ic[0]) + np.cumsum(np.concatenate([[0.0], vels[:-1] * dt]))
+    return s_hor, vels
+
+
+def nl_input(mpc, track, x_ic, v0: float, v_target: float, dt: float):
+    """``_mk_input`` of tests/test_nl_constraints.py in the port: the
+    centerline reference ramping the speed, on the MPC's device."""
+    import torch
+    from racing_lmpc_torch.mpc.racing_mpc import REQUIRED_FIELDS, MPCInput
+    N, nx, nu, K = mpc.N, mpc.nx, mpc.nu, mpc.K
+    s_hor, vels = nl_reference(N, x_ic, v0, v_target, dt)
+    X_ref = np.zeros((N, nx), dtype=np.float32)
+    X_ref[:, 0] = s_hor
+    X_ref[:, mpc.idx_vel] = vels
+    dev = mpc.device
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    s_j = f32(s_hor)
+    return MPCInput(
+        x_ic=f32(x_ic), u_ic=f32(np.zeros(nu)), X_ref=f32(X_ref),
+        U_ref=f32(np.zeros((N - 1, nu))), T_ref=f32(np.full(N - 1, dt)),
+        bound_left=track.left_boundary(s_j), bound_right=track.right_boundary(s_j),
+        total_length=f32(track.total_length), curvatures=track.curvature(s_j),
+        vel_ref=f32(vels), ss_x=f32(np.zeros((K, nx))), ss_j=f32(np.zeros(K)))
+
+
+def dt_corner(track) -> float:
+    """The abscissa of Putnam's tightest corner, as the test finds it."""
+    s = np.linspace(0, track.total_length, 2000)
+    return float(s[np.argmax(np.abs(np.asarray(track.curvature_np(s))))])
+
+
+def dt_batch_states(s_corner: float) -> np.ndarray:
+    """The double-track batch's initial states: the test's state braking into
+    the corner, each lane moved by a seeded draw."""
+    c = NL_DT_BATCH
+    rng = np.random.default_rng(c["seed"])
+    B = c["batch"]
+    x = np.zeros((B, 6))
+    x[:, 0] = s_corner - NL_DT["before_corner"] + rng.uniform(-c["ds"], c["ds"], B)
+    x[:, 1] = rng.uniform(-c["dpy"], c["dpy"], B)
+    x[:, 5] = rng.uniform(*c["v"], B)
+    return x
+
+
+def model_controller(case: str, device, n: int | None = None):
+    """The port's controller and plant of closed-loop case ``case``, as
+    tests/test_closed_loop.py builds them for the reference: the model from
+    the factory, the tracking config at the case's horizon."""
+    from racing_lmpc_torch import config as tc
+    from racing_lmpc_torch.control.loop import MPCController
+    from racing_lmpc_torch.models import load_vehicle_model
+    from racing_lmpc_torch.sim import RacingSimulator
+    from racing_lmpc_torch.track import RacingTrajectory
+    kind, n_case, dt, _, x0 = MODEL_CTRL_CASES[case]
+    n = n or n_case
+    name, yaml = {"kinematic": ("kinematic_bicycle_model", "barc_single_track"),
+                  "double_track": ("double_track_planar_model", "barc_double_track")}[kind]
+    model = load_vehicle_model(name, tc.load_ros_params(
+        tc.PARAM_DIR / "barc_base.param.yaml", tc.PARAM_DIR / f"{yaml}.param.yaml"))
+    track = RacingTrajectory.from_file(tc.TRACK_DIR / "barc" / "02_barc_center.txt",
+                                       device=device)
+    r3 = (1e-3, 0, 0, 0, 1e-3, 0, 0, 0, 1.0)
+    rd3 = (1e-2, 0, 0, 0, 1e-2, 0, 0, 0, 1.0)
+    cfg = tc.barc_mpc_config("barc_tracking_mpc", n=n, learning=False, step_mode="step",
+                             r=r3, r_d=rd3, x_max=(), x_min=(), u_max=(), u_min=())
+    ctrl = MPCController(cfg, model, track, dt, device=device)
+    sim = RacingSimulator(tc.SimulatorConfig(dt=dt, x0=x0), model, track, device=device)
+    return ctrl, sim
+
+
+def nl_qp_sizes() -> dict:
+    """The QP sizes n of the nonlinear-row paths, read from the port's
+    layout (tracking configs with the soft boundary slack)."""
+    from racing_lmpc_torch.mpc.racing_mpc import _Layout
+    paths = {"nl_kinematic": (4, NL_KIN["n"], 2), "nl_double_track_sqp": (6, NL_DT["n"], 7),
+             "nl_double_track_b256": (6, NL_DT_BATCH["n"], 7)}
+    paths.update({case: (4 if kind == "kinematic" else 6, n, 2 if kind == "kinematic" else 7)
+                  for case, (kind, n, *_) in MODEL_CTRL_CASES.items()})
+    return {case: _Layout(nx=nx, nu=3, N=N, K=0, has_bslack=True, has_hull_slack=False,
+                          learning=False, n_nl=n_nl).n
+            for case, (nx, N, n_nl) in paths.items()}
+
+
+def load_fixture(case: str) -> dict:
+    with np.load(FIXTURE_DIR / f"{case}.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def fixture_input(fx, like, device):
+    """The fixture's stored input as an ``MPCInput`` on ``device``, after
+    checking that the port's own construction ``like`` gives the same
+    numbers (the track's splines evaluated in f32 by each package)."""
+    import torch
+    from racing_lmpc_torch.mpc.racing_mpc import REQUIRED_FIELDS, MPCInput
+    fields = {}
+    for name in REQUIRED_FIELDS:
+        got, want = getattr(like, name).cpu().numpy(), fx[f"inp_{name}"]
+        check(got.shape == want.shape and np.allclose(got, want, rtol=1e-5, atol=1e-5),
+              f"input {name} differs from the fixture's")
+        fields[name] = torch.as_tensor(want, device=device)
+    return MPCInput(**fields)
+
+
+def sqp_reading(a: dict, b: dict, su, sx) -> dict:
+    """How far SQP plan ``a`` (``U``, ``X``) lies from plan ``b``: the max
+    |dU| / scale_u of the longitudinal controls and of the steering, and the
+    max |dX| / scale_x."""
+    dU = np.abs(a["U"] - b["U"]) / su
+    return {"U lon max": float(dU[..., :-1].max()), "U steer max": float(dU[..., -1].max()),
+            "X max": float((np.abs(a["X"] - b["X"]) / sx).max())}
+
+
+def pair_limits(runs: list[dict], reading, floors: dict) -> dict:
+    """Each gate's limit: the reference's worst reading between any two of
+    its stored runs, or the gate's floor where that is looser."""
+    got = [reading(a, b) for i, a in enumerate(runs) for j, b in enumerate(runs) if i != j]
+    return {k: max(floor, *(g[k] for g in got)) for k, floor in floors.items()}
+
+
+def drive_nl_sqp(device, case: str) -> dict:
+    """A batch-1 ``solve_sqp`` of a nonlinear-row scenario (``nl_kinematic``:
+    tests/test_nl_constraints.py:63-110; ``nl_double_track_sqp``: :113-163),
+    the launch counts set to 0 just before and read just after.  Held to
+    the test's gates, its runs on the fixture's moved inputs held to the
+    reference's spread, and the same scenario without the constraint rows
+    must break the gate (the rows are load-bearing).  Returns the
+    launches."""
+    import torch
+    fx = load_fixture(case)
+    kind = "kinematic" if case == "nl_kinematic" else "double_track"
+    c = NL_KIN if kind == "kinematic" else NL_DT
+    model, track, mpc = nl_problem(kind, c["n"], device)
+    check(mpc.layout.n_nl == model.n_nl == (2 if kind == "kinematic" else 7),
+          f"{case}: {mpc.layout.n_nl} nonlinear rows a stage")
+    if kind == "kinematic":
+        x_ic = c["x_ic"]
+    else:
+        s_corner = dt_corner(track)
+        check(abs(s_corner - float(fx["s_corner"])) < 1e-6, f"{case}: another corner")
+        x_ic = (s_corner - c["before_corner"], 0.0, 0.0, 0.0, 0.0, c["v0"])
+    inp = fixture_input(fx, nl_input(mpc, track, x_ic, c["v0"], c["v_target"], c["dt"]), device)
+
+    def gate_value(m, out):
+        X, U = out.X_optm, out.U_optm
+        if kind == "kinematic":
+            return float((X[:-1, 3] * U[:, 0]).max())
+        return float(m.friction_ellipse(X[:-1], U).max())
+
+    zero_launches()
+    t = time.perf_counter()
+    out, _ = mpc.solve_sqp(inp, iters=c["sqp_iters"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = read_launches()
+    check(launches["chol_tri_inv"] > 0 and launches["gj_inverse"] == 0,
+          f"{case}: launches {launches}")
+    for name in ("X_optm", "U_optm", "obj"):
+        check(bool(torch.isfinite(getattr(out, name)).all()), f"{case}: {name} not finite")
+    value = gate_value(model, out)
+    if kind == "kinematic":
+        p_max = model.config.p_max
+        excl = float((out.U_optm[:, 0] * out.U_optm[:, 1]).abs().max())
+        print(f"path {case}: solve_sqp({c['sqp_iters']}) {ms:.1f} ms, launches {launches}; "
+              f"power max {value:.4f} W (gate {1.03 * p_max:.4f}), |fd fb| max {excl:.3e} "
+              f"(gate 1.1)", flush=True)
+        check(value <= p_max * 1.03 + 1e-6 and excl <= 1.1, f"{case}: the power rows do not hold")
+    else:
+        v_min = float(out.X_optm[:, 5].min())
+        print(f"path {case}: solve_sqp({c['sqp_iters']}) {ms:.1f} ms, launches {launches}; "
+              f"friction ellipse max {value:.4f} (gate 0.05), v min {v_min:.3f}", flush=True)
+        check(value <= 0.05 and v_min >= -1e-3, f"{case}: the ellipse rows do not hold")
+
+    # the port's runs on the reference's inputs against its runs on the same
+    def as_plan(o):
+        return {"U": o.U_optm.double().cpu().numpy(), "X": o.X_optm.double().cpu().numpy()}
+    port = [as_plan(out)] + [as_plan(mpc.solve_sqp(moved(inp, s), iters=c["sqp_iters"])[0])
+                             for s in range(NL_MOVED)]
+    ref = [{"U": U.astype(np.float64), "X": X.astype(np.float64)}
+           for U, X in zip(fx["U_runs"], fx["X_runs"])]
+    su, sx = fx["scale_u"], fx["scale_x"]
+    limits = pair_limits(ref, lambda a, b: sqp_reading(a, b, su, sx), NL_SQP_FLOORS)
+    print(f"{case} vs reference, {len(port)} runs on the reference's inputs:", flush=True)
+    failed = held([sqp_reading(p, q, su, sx) for p, q in zip(port, ref)], limits)
+    check(not failed, f"{case}: outside the reference's own spread on {failed}")
+
+    free_model, _, free_mpc = nl_problem(kind, c["n"], device, free=True)
+    free, _ = free_mpc.solve_sqp(inp, iters=c.get("free_iters", c["sqp_iters"]))
+    free_value = gate_value(free_model, free)
+    bar = 1.1 * model.config.p_max if kind == "kinematic" else 0.05
+    print(f"  {case} without the constraint rows: {free_value:.4f} > {bar:.4f} "
+          f"(the reference's: {'power' if kind == 'kinematic' else 'ellipse'} "
+          f"{float((fx['X_free'][:-1, 3] * fx['U_free'][:, 0]).max()) if kind == 'kinematic' else float(fx['ell_free']):.4f})",
+          flush=True)
+    check(free_value > bar, f"{case}: the scenario does not exercise its constraint rows")
+    return launches
+
+
+def nl_batch_reading(a: dict, b: dict, su) -> dict:
+    """How far batch run ``a`` (``U``, ``obj``, ``solved``, ``ell``) lies from
+    run ``b``: lanes whose ``solved`` differs, and over the lanes both
+    solved the max |dU| / scale_u of the longitudinal controls,
+    percentiles of the steering's, the max relative objective difference
+    and the max friction-ellipse difference."""
+    both = a["solved"] & b["solved"]
+    dU = (np.abs(a["U"] - b["U"]) / su)[both]
+    steer = dU[..., -1].max(-1) if len(dU) else np.zeros(1)
+    return {"solved differs": int((a["solved"] != b["solved"]).sum()),
+            "lon max": float(dU[..., :-1].max(initial=0.0)),
+            "steer p50": float(np.percentile(steer, 50)),
+            "steer p90": float(np.percentile(steer, 90)),
+            "objective max": float((np.abs(a["obj"] - b["obj"])[both]
+                                    / np.maximum(np.abs(b["obj"][both]), 1.0)).max(initial=0.0)),
+            "ellipse max": float(np.abs(a["ell"] - b["ell"])[both].max(initial=0.0))}
+
+
+def drive_nl_batch(device, case: str = "nl_double_track_b256") -> dict:
+    """The double-track braking scenario as a batch of lanes through
+    ``solve_batch`` (N=20), the launch counts set to 0 just before and read
+    just after: ``solved`` lane by lane, the controls, objective and
+    friction-ellipse residual held to the reference's spread over its 9
+    stored runs (the median over the port's 9 runs on the same inputs).
+    Returns the launches."""
+    import torch
+    from racing_lmpc_torch.mpc.racing_mpc import REQUIRED_FIELDS, MPCInput
+    fx = load_fixture(case)
+    c = NL_DT_BATCH
+    model, track, mpc = nl_problem("double_track", c["n"], device)
+    s_corner = dt_corner(track)
+    check(abs(s_corner - float(fx["s_corner"])) < 1e-6, f"{case}: another corner")
+    lanes = [nl_input(mpc, track, x, x[5], NL_DT["v_target"], NL_DT["dt"])
+             for x in dt_batch_states(s_corner)]
+    inp = fixture_input(fx, MPCInput(**{f: torch.stack([getattr(a, f) for a in lanes]) for f in REQUIRED_FIELDS}), device)
+    B = c["batch"]
+
+    def as_run(out):
+        X, U = out.X_optm, out.U_optm
+        ell = model.friction_ellipse(X[:, :-1], U).amax(dim=(-2, -1))
+        return {"U": U.double().cpu().numpy(), "obj": out.obj.double().cpu().numpy(),
+                "solved": out.solved.cpu().numpy(), "ell": ell.double().cpu().numpy()}
+
+    zero_launches()
+    out, _ = mpc.solve_batch(inp)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"path {case}: launches {launches}", flush=True)
+    check(0 < launches["chol_tri_inv"] <= 150 and launches["gj_inverse"] == 0,
+          f"{case}: launches {launches}")
+    for name in ("X_optm", "U_optm", "dU_optm", "obj"):
+        check(bool(torch.isfinite(getattr(out, name)).all()), f"{case}: {name} not finite")
+    port = [as_run(out)] + [as_run(mpc.solve_batch(moved(inp, s))[0])
+                            for s in range(NL_BATCH_MOVED)]
+    ref = [{"U": U.astype(np.float64), "obj": o.astype(np.float64), "solved": sv,
+            "ell": e.astype(np.float64)}
+           for U, o, sv, e in zip(fx["U_runs"], fx["obj_runs"], fx["solved_runs"], fx["ell_runs"])]
+    su = fx["scale_u"]
+    for b in np.flatnonzero(port[0]["solved"] != ref[0]["solved"]):
+        print(f"  lane {b}: port solved={bool(port[0]['solved'][b])} "
+              f"rp_rel={float(out.rp_rel[b]):.3e} rd_rel={float(out.rd_rel[b]):.3e}; reference "
+              f"r_prim={float(fx['r_prim'][b]):.3e} r_dual={float(fx['r_dual'][b]):.3e}", flush=True)
+    print(f"{case} vs reference, {len(port)} runs on the reference's inputs: solved "
+          f"{[int(r['solved'].sum()) for r in port]} of {B} (reference "
+          f"{[int(r['solved'].sum()) for r in ref]}); friction ellipse max over solved lanes "
+          f"{float(port[0]['ell'][port[0]['solved']].max()):.4f} (reference "
+          f"{float(ref[0]['ell'][ref[0]['solved']].max()):.4f})", flush=True)
+    limits = pair_limits(ref, lambda a, b: nl_batch_reading(a, b, su), NL_BATCH_FLOORS)
+    failed = held([nl_batch_reading(p, q, su) for p, q in zip(port, ref)], limits)
+    check(not failed, f"{case}: outside the reference's own spread on {failed}")
+    ms = cuda_time_ms(lambda: mpc.solve_batch(inp), reps=3, warmup=1)
+    print(f"path {case}: {ms:.1f} ms per batch, {B / (ms / 1e3):.1f} solves/s", flush=True)
+    profile(lambda: mpc.solve_batch(inp), ms, f"{case} solve")
+    return launches
+
+
+def drive_model_controller(device, case: str) -> tuple[dict, float, float, tuple]:
+    """The closed loop of a nonlinear-row model (tests/test_closed_loop.py:
+    145-219) for the cycles of ``MODEL_CTRL_CASES``: the port's controller
+    and plant, the launch counts set to 0 just before and read just after,
+    held to the test's gates (its final-speed gate scaled by the
+    reference's own first run at this depth, where the card drives fewer
+    cycles than the test); a profiled cycle.  Returns the launches, the
+    median cycle ms, the idle share of the profiled cycle and the path's
+    ``MODEL_CTRL_REPLAYS`` teacher-forced runs for ``settle_replays``, held
+    to the reference's own spread."""
+    import torch
+    full = load_fixture(case)
+    fx = ctrl_fixture(case)
+    cycles = fx["x_ctrl"].shape[1] - 1
+    check(cycles == MODEL_CTRL_DEPTH[case], f"{case}: fixture has fewer cycles")
+    ctrl, sim = model_controller(case, device, n=int(fx["n"]))
+    vel = ctrl.mpc.idx_vel
+    zero_launches()
+    t = time.perf_counter()
+    info = ctrl.step(sim.x)
+    boot_ms = (time.perf_counter() - t) * 1e3
+    fallbacks, lat, ms = 0, [], []
+    for _ in range(cycles):
+        sim.step(info.u_base)
+        t = time.perf_counter()
+        info = ctrl.step(sim.x, u_ic=info.u_apply)
+        fallbacks += int(bool(info.used_fallback))
+        ms.append((time.perf_counter() - t) * 1e3)
+        lat.append(abs(float(sim.x[1])))
+    launches = read_launches()
+    check(launches["chol_tri_inv"] > 0 and launches["gj_inverse"] == 0,
+          f"{case}: launches {launches}")
+    check(bool(torch.isfinite(sim.x).all()), f"{case}: plant state not finite")
+    g = MODEL_CTRL_GATES
+    speed = float(sim.x[vel])
+    ref_speed = fx["x_plant"][:, -1, vel]
+    speed_gate = g["speed"] * float(ref_speed[0] / full["x_plant"][0, -1, vel])
+    cycle_ms = float(np.median(ms))
+    print(f"path {case}: {cycles} cycles (N={int(fx['n'])}; the test drives "
+          f"{full['x_ctrl'].shape[1] - 1}), launches {launches} "
+          f"({launches['chol_tri_inv'] / (cycles + 1):.1f} chol_tri_inv per cycle); fallbacks "
+          f"{fallbacks} (gate {g['fallbacks']}, reference {fx['used_fallback'].sum(-1).tolist()}); "
+          f"max |lateral| {max(lat):.4f} (gate {g['lat']}, reference "
+          f"{np.round(np.abs(fx['x_plant'][..., 1]).max(-1), 4).tolist()}); final speed "
+          f"{speed:.4f} (gate > {speed_gate:.4f}, reference {np.round(ref_speed, 4).tolist()}); "
+          f"cycle wall ms: first (bootstrap) {boot_ms:.1f}, median after {cycle_ms:.1f} "
+          f"(min {min(ms):.1f}, max {max(ms):.1f})", flush=True)
+    check(fallbacks <= g["fallbacks"] and max(lat) < g["lat"] and speed > speed_gate,
+          f"{case}: outside the closed-loop gates")
+    idle = profile(lambda: ctrl.step(sim.x, u_ic=info.u_apply), cycle_ms, f"{case} one cycle")
+
+    def held_replays(port):
+        failed = held_ctrl(port, fx, ctrl_limits(fx), f"{case} vs reference")
+        check(not failed, f"{case}: outside the reference's own spread on {failed}")
+    return launches, cycle_ms, idle, (case, MODEL_CTRL_REPLAYS, held_replays)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1164,19 +1657,32 @@ def main() -> int:
         device, "barc_n20_k48_b256", profiled=True)
     lower_precision_control(mpc, inp, fx, limits)
     per_path["barc_n40_k96_b128"] = drive_path(device, "barc_n40_k96_b128")[0]
+    # each controller path's replays, the longest first (settle_replays)
+    pending = []
     for case in ("ctrl_barc_lmpc", "ctrl_putnam_short_lmpc"):
-        per_path[case] = drive_controller(device, case)[0]
+        per_path[case], *_, replays = drive_controller(device, case)
+        pending.insert(0, replays)
     per_path["barc_tracking_mpc"] = drive_tracking(device)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
     for case in ADMM_CASES:
         per_path[case] = drive_path(device, case, profiled=True)[0]
-    per_path["ctrl_barc_lmpc_regression"] = drive_controller(
-        device, "ctrl_barc_lmpc_regression")[0]
+    per_path["ctrl_barc_lmpc_regression"], *_, replays = drive_controller(
+        device, "ctrl_barc_lmpc_regression")
+    pending.append(replays)
     for case in CONT_CASES:
         per_path[case] = drive_continuous(device, case)[0]
     stack = drive_stack(device)
     per_path["stack_lqr"], per_path["stack_legacy"] = stack["lqr"], stack["legacy"]
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
+    for case in ("nl_kinematic", "nl_double_track_sqp"):
+        per_path[case] = drive_nl_sqp(device, case)
+    per_path["nl_double_track_b256"] = drive_nl_batch(device)
+    for case in MODEL_CTRL_CASES:
+        per_path[case], *_, replays = drive_model_controller(device, case)
+        pending.insert(1, replays)
+    print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
+    settle_replays(pending)
+    print(f"replays done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     def entry(name, source, replaces, numbers):
         counts = {path: c[name] for path, c in per_path.items()}

@@ -19,9 +19,8 @@ Where the reference jits one step function per observation source, the port
 runs plain functions on tensors on its device (CUDA unless the caller names
 one).  Jacobians are forward mode as in ``models/base.py``: ``vmap`` of
 ``jvp`` over the basis tangents, the dynamics' on a batch of one (PyTorch
-2.13 promotes the forward-mode tangents of 0-d intermediates to float64).  S^-1 is the
-reference's ``inv_small``: the closed form for k <= 3 and a library inverse
-above, as ``jnp.linalg.inv`` there.
+2.13 promotes the forward-mode tangents of 0-d intermediates to float64).  S^-1 is
+``ops.linalg.inv_small``, as the reference's (``ekf.py:150``).
 """
 
 from __future__ import annotations
@@ -80,12 +79,6 @@ def _jacobian(h: Callable[[Tensor], Tensor], x: Tensor) -> Tensor:
     def column(t):
         return torch.func.jvp(h, (x,), (t,))[1]
     return torch.movedim(torch.func.vmap(column)(eye), 0, -1).to(x.dtype)
-
-
-def _inv(S: Tensor) -> Tensor:
-    """The reference's ``inv_small`` (``pallas_linalg.py:394-420``): the
-    closed form for k <= 3, a library inverse above."""
-    return inv_small(S) if S.shape[-1] <= 3 else torch.linalg.inv(S)
 
 
 class EKFStateEstimator:
@@ -165,7 +158,7 @@ class EKFStateEstimator:
         H = _jacobian(lambda xv: h(xv, z_safe), x_p)
         y = z_safe - h(x_p, z_safe)
         S = H @ P_p @ H.T + R
-        Kz = P_p @ H.T @ _inv(S)
+        Kz = P_p @ H.T @ inv_small(S)
         x_c = x_p + Kz @ y
         P_c = (torch.eye(nx, dtype=x.dtype, device=x.device) - Kz @ H) @ P_p
         # NaN/Inf input -> pure prediction (:155-167)

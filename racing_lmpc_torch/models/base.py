@@ -6,14 +6,15 @@ Jacobian that JAX takes with ``jax.jacfwd`` under ``vmap`` is forward mode
 here too: ``torch.func.vmap`` of ``torch.func.jvp`` over the basis tangents,
 each tangent pushed through the whole batch at once.
 The base state/control conversions the simulator uses are here
-(``base.py:99``, ``:135-145``); the throttle/brake lookup helpers
-(``base.py:203-277``) are not on any ported path and are not ported yet.
+(``base.py:99``, ``:135-145``), with the nonlinear stage-constraint default
+(``:184-201``) and the actuator maps (``:203-277``), host scalar maps that
+return Python floats as the reference's do.
 """
 
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -21,6 +22,7 @@ from torch import Tensor
 
 from racing_lmpc_torch.config import BaseVehicleConfig
 from racing_lmpc_torch.ops.integrators import integrate
+from racing_lmpc_torch.ops.lookup import _fast_linear, bilinear_interpolate
 
 GRAVITY = 9.8
 
@@ -38,6 +40,15 @@ class BaseUIndex(enum.IntEnum):
     FD = 0
     FB = 1
     STEER = 2
+
+
+@dataclass
+class VehicleState:
+    """Low-rate hardware state used by the actuator maps
+    (``BaseVehicleModelState``, ``base.py:51-59``)."""
+    wheel_speeds: np.ndarray = field(default_factory=lambda: np.zeros(4))
+    engine_rpm: float = 0.0
+    gear: int = 1
 
 
 @dataclass(frozen=True)
@@ -60,6 +71,7 @@ class VehicleModel:
 
     def __init__(self, base_config: BaseVehicleConfig):
         self.base_config = base_config
+        self.vehicle_state = VehicleState()
 
     @property
     def nx(self) -> int:
@@ -69,8 +81,7 @@ class VehicleModel:
     def nu(self) -> int:
         raise NotImplementedError
 
-    # number of rows of the model's nonlinear stage constraints (none on
-    # the single-track model; the constraint rows wait for a later slice)
+    # number of rows ``nl_constraints`` returns (static, per model)
     n_nl: int = 0
     # base control layout (FD, FB, STEER) the simulator and actuation speak
     nu_base: int = 3
@@ -155,6 +166,87 @@ class VehicleModel:
 
     def control_bounds(self) -> BoxBounds:
         raise NotImplementedError
+
+    def nl_constraints(self, x: Tensor, u: Tensor, k: Tensor) -> Tensor:
+        """Stage-wise nonlinear inequality residuals g(x, u, k) <= 0, over
+        any leading batch shape (``base.py:184-201``): the MPC linearizes
+        them at its reference each solve.  Default: no rows."""
+        return x.new_zeros(x.shape[:-1] + (0,))
+
+    # -- actuator maps (base_vehicle_model.cpp:131-246) ----------------------
+    def _torque_lookup(self, throttle) -> Tensor:
+        """Engine torque at the state's rpm and ``throttle`` (f32 on the
+        host, as the reference's lookup runs in f32)."""
+        pt = self.base_config.powertrain
+        f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)  # noqa: E731
+        return bilinear_interpolate(f32(pt.rpm), f32(pt.throttle), f32(pt.torque_table()),
+                                    self.vehicle_state.engine_rpm, throttle)
+
+    def calc_throttle(self, fd: float) -> float:
+        """Drive force (N) -> throttle % via the inverse engine-torque
+        lookup (``base.py:204-230``)."""
+        pt = self.base_config.powertrain
+        state = self.vehicle_state
+        if state.gear > len(pt.gear_ratio):
+            return 0.0
+        ft = self.base_config.front_tyre
+        rt = self.base_config.rear_tyre
+        target_front = fd * ft.radius * pt.kd
+        target_rear = fd * rt.radius * (1.0 - pt.kd)
+        target_wheel = (target_front + target_rear) / pt.mechanical_efficiency
+        target_engine = target_wheel / (pt.gear_ratio[state.gear - 1] * pt.final_drive_ratio)
+        sample = self.base_config.modeling.sample_throttle
+        t_min = self._torque_lookup(0.0)
+        t_smp = self._torque_lookup(sample)
+        t_max = self._torque_lookup(100.0)
+        lo = _fast_linear(t_min, t_smp, 0.0, sample, target_engine, False)
+        hi = _fast_linear(t_smp, t_max, sample, 100.0, target_engine, False)
+        return float(torch.where(target_engine < t_smp, lo, hi))
+
+    def calc_brake(self, fb: float) -> float:
+        """Brake force (N, negative) -> master-cylinder kPa, with the
+        reference's front-only clamp of the return value (``base.py:232-245``)."""
+        if fb > 0.0:
+            return 0.0
+        fbc = self.base_config.front_brake
+        front_torque = fbc.bias * fb * self.base_config.front_tyre.radius * fbc.bias
+        lever = (fbc.brake_pad_in_r + fbc.brake_pad_out_r) / 2.0
+        kpa = -0.001 * front_torque / (lever * fbc.brake_pad_friction_coeff * fbc.piston_area)
+        return float(np.clip(kpa, 0.0, fbc.max_brake))
+
+    def calc_drive_force(self, throttle: float) -> float:
+        """Throttle % -> drive force (N) via the forward torque lookup
+        (``base.py:247-262``)."""
+        pt = self.base_config.powertrain
+        state = self.vehicle_state
+        throttle = float(np.clip(throttle, 0.0, 100.0))
+        if state.gear > len(pt.gear_ratio):
+            return 0.0
+        engine_torque = float(self._torque_lookup(throttle))
+        wheel_torque = engine_torque * pt.gear_ratio[state.gear - 1] * pt.final_drive_ratio
+        front = wheel_torque * pt.kd / self.base_config.front_tyre.radius
+        rear = wheel_torque * (1.0 - pt.kd) / self.base_config.rear_tyre.radius
+        return front + rear
+
+    def calc_brake_force(self, brake_kpa: float) -> float:
+        """Master-cylinder kPa -> total brake force (N) (``base.py:264-277``)."""
+        fbc = self.base_config.front_brake
+        rbc = self.base_config.rear_brake
+        f_kpa = float(np.clip(fbc.bias * brake_kpa, 0.0, fbc.max_brake))
+        r_kpa = float(np.clip(rbc.bias * brake_kpa, 0.0, rbc.max_brake))
+        f_lever = (fbc.brake_pad_in_r + fbc.brake_pad_out_r) / 2.0
+        r_lever = (rbc.brake_pad_in_r + rbc.brake_pad_out_r) / 2.0
+        f_torque = f_kpa * 1000.0 * fbc.piston_area * fbc.brake_pad_friction_coeff * f_lever
+        r_torque = r_kpa * 1000.0 * rbc.piston_area * rbc.brake_pad_friction_coeff * r_lever
+        return (f_torque / self.base_config.front_tyre.radius
+                + r_torque / self.base_config.rear_tyre.radius)
+
+    def _throttle_or_brake(self, fd: float, fb: float) -> tuple[float, float]:
+        """(throttle %, brake kPa): the dominant force channel drives its
+        actuator map, the other is 0 (every model's ``calc_lon_control``)."""
+        if abs(fd) > abs(fb):
+            return self.calc_throttle(fd), 0.0
+        return 0.0, self.calc_brake(fb)
 
     # -- axle-level force helpers shared by the planar models ----------------
     def _axle_longitudinal_forces(self, fd: Tensor, fb: Tensor):

@@ -1,8 +1,8 @@
 """Single-track (dynamic bicycle) planar model with simplified Pacejka tyres.
 
-Port of ``racing_lmpc_tpu/models/single_track.py:38-188`` (the dynamics,
-the base-control conversions and the QP-path constraint data; the actuator
-maps ``calc_lon_control``/``calc_lat_control`` wait for a later slice).
+Port of ``racing_lmpc_tpu/models/single_track.py:38-188``: the dynamics,
+the base-control conversions, the QP-path constraint data and the actuator
+maps ``calc_lon_control``/``calc_lat_control``.
 
 State  x = (PX, PY, YAW, VX, VY, VYAW)          [Frenet: (s, t, xi, vx, vy, w)]
 Control, full:        u = (FD, FB, STEER)        (nu = 3)
@@ -158,6 +158,16 @@ class SingleTrackPlanarModel(VehicleModel):
             du_lb = np.array([-np.inf, cfg.fb_max / cfg.tb, -steer_rate])
             du_ub = np.array([cfg.fd_max / cfg.td, np.inf, steer_rate])
         return BoxBounds(u_lb, u_ub, du_lb, du_ub)
+
+    def calc_lon_control(self, u) -> tuple[float, float]:
+        """(throttle %, brake kPa) from a model control vector
+        (``single_track.py:173-180``)."""
+        fd, fb, _ = self.split_lon_control(torch.as_tensor(u, dtype=torch.float32))
+        return self._throttle_or_brake(float(fd), float(fb))
+
+    def calc_lat_control(self, u) -> float:
+        idx = SimpleUIndex.STEER if self.config.simplify_lon_control else BaseUIndex.STEER
+        return float(u[idx])
 
 
 def _sigmoid(z: Tensor) -> Tensor:

@@ -12,8 +12,12 @@ and of every row block.
 
 ``solve`` (one problem), ``solve_sqp`` (the bootstrap's SQP loop),
 ``warm_start_vector`` and ``create_warm_start`` are ported for the
-controller cycle (``:669-773``).  Not ported yet: the nonlinear
-model-constraint rows (no model of the port has any).
+controller cycle (``:669-773``).  A model with nonlinear stage constraints
+(``model.n_nl > 0``: the kinematic bicycle's power and drive/brake
+exclusivity, the double-track's friction ellipses, power, exclusivity and
+v >= 0) gets their rows linearized at the reference of every solve
+(``_nl_linearize``, ``:183-190``; the row block of ``_build_qp``,
+``:527-558``), so ``solve_sqp`` re-linearizes them at every iterate.
 """
 
 from __future__ import annotations
@@ -140,15 +144,19 @@ class _Layout:
         self.m = r
 
 
+def _nl_linearize(model: VehicleModel, X: Tensor, U: Tensor, Ks: Tensor):
+    """(g, dg/dx, dg/du) of ``model.nl_constraints`` at every stage
+    reference, over the leading (lane, stage) dimensions, by the model's
+    forward-mode Jacobian."""
+    return model._forward_jacobian(lambda xx, uu: model.nl_constraints(xx, uu, Ks), X, U)
+
+
 class RacingMPC:
     """Build-once / solve-many batched MPC on one device (CUDA by default)."""
 
     def __init__(self, config: RacingMPCConfig, model: VehicleModel,
                  device=None):
         self.device = resolve_device(device)
-        if model.n_nl:
-            raise NotImplementedError(
-                "nonlinear model-constraint rows are not ported yet")
         if config.qp_method not in ("ipm", "admm"):
             raise ValueError(f"qp_method={config.qp_method!r}: 'ipm' or 'admm'")
         self.config = config
@@ -447,6 +455,28 @@ class RacingMPC:
         else:
             lo[:, xb_rows] = xmin_t
             up[:, xb_rows] = xmax_t
+
+        # ---- nonlinear model constraints, linearized at the reference:
+        # g_i + Gx (x_i - xr_i) + Gu (u_i - ur_i) <= 0 with x_i = F_i v + f_i
+        # and u_i = su * (MU v + mu0)_i (``racing_mpc.py:527-558``)
+        n_nl = L.n_nl
+        if n_nl:
+            g0, Gx, Gu = _nl_linearize(self.model, inp.X_ref[:, :-1], inp.U_ref,
+                                       inp.curvatures[:, :-1])   # (B, N-1, n_nl[, .])
+            MU_blk = MU.reshape(B, N - 1, nu, nuu)
+            mu0_blk = mu0.reshape(B, N - 1, nu)
+            rows = Gx @ F[:, :-1] + (Gu * su) @ MU_blk           # (B, N-1, n_nl, nuu)
+            rhs = (-g0 + mv(Gx, inp.X_ref[:, :-1] - f[:, :-1])
+                   + mv(Gu, inp.U_ref - su * mu0_blk))
+            nl_rows = slice(L.r_nl, L.r_nl + (N - 1) * n_nl)
+            rows2 = rows.reshape(B, (N - 1) * n_nl, nuu)
+            A[:, nl_rows, :nuu] = rows2
+            # a vanishing linearization (drive/brake exclusivity at fd = fb
+            # = 0 has zero gradient) leaves an all-zero row whose
+            # equilibration wrecks the whole solve; such a row is locally
+            # vacuous, so it is deactivated as the reference does
+            rn = torch.amax(torch.abs(rows2), dim=-1)
+            up[:, nl_rows] = torch.where(rn > 1e-6, rhs.reshape(B, -1), torch.inf)
 
         # ---- LMPC lambda simplex + (hard) hull (build_lmpc_cost) --------
         if cfg.learning:

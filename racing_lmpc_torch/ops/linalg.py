@@ -363,7 +363,9 @@ gj_inverse.launches = 0
 
 def inv_small(M: Tensor) -> Tensor:
     """Closed-form inverse for tiny trailing dims (1/2/3): adjugate over
-    determinant.  Larger sizes are not on any path of the port and raise."""
+    determinant; larger sizes through ``torch.linalg.inv``, as the
+    reference falls back to ``jnp.linalg.inv`` (``pallas_linalg.py:394-420``;
+    a library call there, not a Pallas kernel)."""
     k = M.shape[-1]
     if k == 1:
         return 1.0 / M
@@ -383,7 +385,7 @@ def inv_small(M: Tensor) -> Tensor:
         adj = torch.stack([torch.stack([cof[j][i] for j in range(3)], -1)
                            for i in range(3)], -2)
         return adj / det[..., None, None]
-    raise ValueError(f"inv_small takes trailing size 1, 2 or 3, got {k}")
+    return torch.linalg.inv(M)
 
 
 def solve_small(M: Tensor, X: Tensor) -> Tensor:

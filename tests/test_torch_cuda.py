@@ -40,7 +40,7 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("n", [1, 87, 175, 216])
+@pytest.mark.parametrize("n", [1, 28, 40, 58, 73, 87, 175, 216])
 def test_chol_tri_inv_kernel_matches_plain(cuda, n):
     H = torch.as_tensor(spd(np.random.default_rng(n), 32, n), device=cuda)
     before = tl.chol_tri_inv.launches
@@ -54,12 +54,14 @@ def test_chol_tri_inv_kernel_matches_plain(cuda, n):
 
 
 @pytest.mark.parametrize("G", [1, 32])
-@pytest.mark.parametrize("n", [1, 2, 32, 33, 87, 96, 97, 175, 216, 225, 240])
+@pytest.mark.parametrize("n", [1, 2, 28, 31, 32, 33, 40, 58, 73, 87, 96, 97, 175, 216,
+                               225, 240])
 def test_chol_tri_inv_kernel_matches_sweep_bit_for_bit(cuda, n, G):
     # the kernel and its step mirror round every operation alike; the sizes
-    # take in the panel edges (32, 96/97 where two matrices stop sharing an
-    # SM) and the last variant (225-240: its last panel holds 2 of 4 row
-    # tiles) up to the limit
+    # take in the panel edges (31-33, 96/97 where two matrices stop sharing
+    # an SM), the QP sizes of the nonlinear-row paths (28, 40, 58, 73) and
+    # the last variant (225-240: its last panel holds 2 of 4 row tiles) up
+    # to the limit
     H = torch.as_tensor(spd(np.random.default_rng(1000 + n), G, n), device=cuda)
     K = tl.chol_tri_inv(H)
     S = tl.chol_tri_inv_sweep(H)
@@ -81,6 +83,34 @@ def test_solve_batch_on_card_matches_cpu(cuda):
     assert np.array_equal(np_of(cpu.solved), np_of(gpu.solved))
     su = mpc.scale_u
     assert (np.abs(np_of(gpu.U_optm) - np_of(cpu.U_optm))[..., 0] / su[0]).max() < 1e-3
+    o_c, o_g = np_of(cpu.obj).astype(np.float64), np_of(gpu.obj).astype(np.float64)
+    assert (np.abs(o_g - o_c) / np.maximum(np.abs(o_c), 1.0)).max() < 1e-3
+
+
+@pytest.mark.parametrize("kind", ["kinematic", "double_track"])
+def test_nl_solve_batch_on_card_matches_cpu(cuda, kind):
+    """A batch of the nonlinear-row scenarios (N=10) on the card and on the
+    CPU: the same flags, controls and objectives."""
+    import chip_smoke
+    from racing_lmpc_torch.mpc.racing_mpc import REQUIRED_FIELDS, MPCInput
+    c = chip_smoke.NL_KIN if kind == "kinematic" else chip_smoke.NL_DT
+    out = {}
+    for dev in ("cpu", cuda):
+        _, track, mpc = chip_smoke.nl_problem(kind, 10, dev)
+        if kind == "kinematic":
+            x_ics = np.asarray(c["x_ic"]) + np.array([[0, 0, 0, 0], [1.0, 0.05, 0.0, 0.4]])
+        else:
+            x_ics = chip_smoke.dt_batch_states(chip_smoke.dt_corner(track))[:3]
+        lanes = [chip_smoke.nl_input(mpc, track, x, x[mpc.idx_vel], c["v_target"], c["dt"])
+                 for x in x_ics]
+        inp = MPCInput(**{f: torch.stack([getattr(a, f) for a in lanes]) for f in REQUIRED_FIELDS})
+        tl.chol_tri_inv.launches = 0
+        out[str(dev)] = mpc.solve_batch(inp)[0]
+        assert (tl.chol_tri_inv.launches > 0) == (dev != "cpu")
+    cpu, gpu = out["cpu"], out[str(cuda)]
+    assert np.array_equal(np_of(cpu.solved), np_of(gpu.solved))
+    su = mpc.scale_u
+    assert (np.abs(np_of(gpu.U_optm) - np_of(cpu.U_optm))[..., :2] / su[:2]).max() < 1e-3
     o_c, o_g = np_of(cpu.obj).astype(np.float64), np_of(gpu.obj).astype(np.float64)
     assert (np.abs(o_g - o_c) / np.maximum(np.abs(o_c), 1.0)).max() < 1e-3
 

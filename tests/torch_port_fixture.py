@@ -418,6 +418,272 @@ def compute_admm(case: str) -> dict:
             "scale_u": np.asarray(mpc.scale_u)}
 
 
+# ---------------------------------------------------------------------------
+# the nonlinear-row paths (chip_smoke.NL_*, MODEL_CTRL_CASES): the kinematic
+# bicycle and the double-track with their linearized constraint rows
+# ---------------------------------------------------------------------------
+
+# nl case -> (scenario, the solve: "sqp" or "batch")
+NL_CASES = {"nl_qp_n10": (None, "build"),
+            "nl_kinematic": ("kinematic", "sqp"),
+            "nl_double_track_sqp": ("double_track", "sqp"),
+            "nl_double_track_b256": ("double_track", "batch")}
+# closed-loop case -> (chip_smoke.MODEL_CTRL_CASES entry, horizon, cycles
+# after the first, moved re-runs): the card's depth, and an N=10 cut of a
+# few cycles that the CPU tests replay
+MODEL_CTRL_FIXTURES = {
+    "ctrl_kinematic": ("ctrl_kinematic", None, None, 4),
+    "ctrl_double_track": ("ctrl_double_track", None, None, 4),
+    "ctrl_kinematic_n10": ("ctrl_kinematic", 10, 3, 8),
+    "ctrl_double_track_n10": ("ctrl_double_track", 10, 3, 8),
+}
+
+
+def nl_problem(kind: str, n: int, free: bool = False):
+    """The reference's (model, track, mpc) of a nonlinear-row scenario, as
+    tests/test_nl_constraints.py builds them (``chip_smoke.nl_problem`` is
+    the port's)."""
+    _jax_on_cpu()
+    from racing_lmpc_tpu import config as jc
+    from racing_lmpc_tpu.models import DoubleTrackPlanarModel, KinematicBicycleModel
+    from racing_lmpc_tpu.mpc.racing_mpc import RacingMPC
+    from racing_lmpc_tpu.track import RacingTrajectory
+    no_box = dict(x_min=(), x_max=(), u_min=(), u_max=())
+    if kind == "kinematic":
+        p = jc.load_ros_params(jc.PARAM_DIR / "barc_base.param.yaml",
+                               jc.PARAM_DIR / "barc_single_track.param.yaml")
+        model = KinematicBicycleModel(jc.vehicle_config_from_params(p),
+                                      jc.single_track_config_from_params(
+                                          p, simplify_lon_control=False, p_max=1.2))
+        track_file = jc.TRACK_DIR / "barc" / "02_barc_center.txt"
+        eye3 = tuple(np.eye(3).ravel() * 0.01)
+        cfg = jc.barc_mpc_config("barc_tracking_mpc", n=n, learning=False,
+                                 r=eye3, r_d=eye3, q_vel=8.0, **no_box)
+    else:
+        p = jc.load_ros_params(jc.PARAM_DIR / "sample_vehicle_base.param.yaml",
+                               jc.PARAM_DIR / "sample_vehicle_double_track.param.yaml")
+        model = DoubleTrackPlanarModel(jc.vehicle_config_from_params(p),
+                                       jc.double_track_config_from_params(p))
+        track_file = jc.TRACK_DIR / "putnam" / "10_putnam_optm.txt"
+        eye3 = tuple((np.eye(3) * np.array([1e-7, 1e-7, 0.05])).ravel())
+        cfg = jc.barc_mpc_config("iac_car_tracking_mpc", n=n, learning=False,
+                                 r=eye3, r_d=eye3, q_vel=20.0, q_boundary=1000.0,
+                                 q_contour=50.0, q_heading=20.0, **no_box)
+    if free:
+        model.n_nl = 0
+    return model, RacingTrajectory.from_file(track_file), RacingMPC(cfg, model)
+
+
+def nl_input(mpc, track, x_ic, v0, v_target, dt) -> dict:
+    """tests/test_nl_constraints.py's ``_mk_input`` as numpy arrays."""
+    import jax.numpy as jnp
+    from chip_smoke import nl_reference
+    N, nx, nu, K = mpc.N, mpc.nx, mpc.nu, mpc.K
+    s_hor, vels = nl_reference(N, x_ic, v0, v_target, dt)
+    X_ref = np.zeros((N, nx), dtype=np.float32)
+    X_ref[:, 0] = s_hor
+    X_ref[:, mpc.idx_vel] = vels
+    s_j = jnp.asarray(s_hor, jnp.float32)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return {"x_ic": f32(x_ic), "u_ic": np.zeros(nu, np.float32), "X_ref": X_ref,
+            "U_ref": np.zeros((N - 1, nu), np.float32), "T_ref": np.full(N - 1, dt, np.float32),
+            "bound_left": f32(track.left_boundary(s_j)),
+            "bound_right": f32(track.right_boundary(s_j)),
+            "total_length": np.float32(track.total_length),
+            "curvatures": f32(track.curvature(s_j)), "vel_ref": f32(vels),
+            "ss_x": np.zeros((K, nx), np.float32), "ss_j": np.zeros(K, np.float32)}
+
+
+def _moved_fields(fields: dict, s: int) -> dict:
+    """x_ic and X_ref scaled by 1 + 2e-7 N(0, 1) from numpy seed 1 + s, as
+    ``chip_smoke.moved`` reproduces them."""
+    rng = np.random.default_rng(1 + s)
+    out = dict(fields)
+    for k in ("x_ic", "X_ref"):
+        a = fields[k]
+        out[k] = (a * (1 + 2e-7 * rng.standard_normal(a.shape))).astype(np.float32)
+    return out
+
+
+def _ellipse_max(model, X, U) -> np.ndarray:
+    """The largest friction-ellipse residual over the stages of each plan
+    (leading dimensions kept)."""
+    import jax
+    import jax.numpy as jnp
+    f = jax.jit(jax.vmap(model.friction_ellipse))
+    X, U = np.asarray(X), np.asarray(U)
+    lead = U.shape[:-2]
+    Xs = jnp.asarray(X[..., :-1, :].reshape(-1, X.shape[-1]))
+    Us = jnp.asarray(U.reshape(-1, U.shape[-1]))
+    return np.asarray(f(Xs, Us)).reshape(lead + (-1,)).max(-1)
+
+
+def compute_nl_qp() -> dict:
+    """The reference's condensed QP (``_build_qp``) of three lanes of each
+    nonlinear-row model at N=10: the kinematic ramp from three initial
+    states and the double-track braking lanes, the third lane of each with a
+    seeded nonzero control reference (the other two leave the exclusivity
+    rows all zero: deactivated).  ``<model>_inp_<field>`` and
+    ``<model>_<P|q|A|l|u>``."""
+    _jax_on_cpu()
+    import jax
+    import jax.numpy as jnp
+    from chip_smoke import NL_DT, NL_KIN, dt_batch_states, dt_corner
+    from racing_lmpc_tpu.mpc.racing_mpc import MPCInput
+    out = {}
+    rng = np.random.default_rng(9)
+    for kind in ("kinematic", "double_track"):
+        c = NL_KIN if kind == "kinematic" else NL_DT
+        _, track, mpc = nl_problem(kind, 10)
+        if kind == "kinematic":
+            x_ics = np.asarray(c["x_ic"]) + np.array([[0, 0, 0, 0], [1.0, 0.05, 0.02, 0.4],
+                                                      [2.0, -0.05, -0.02, -0.4]])
+        else:
+            x_ics = dt_batch_states(dt_corner(track))[:3]
+        lanes = [nl_input(mpc, track, x, x[mpc.idx_vel], c["v_target"], c["dt"])
+                 for x in x_ics]
+        fields = {k: np.stack([f[k] for f in lanes]) for k in lanes[0]}
+        f = 2.0 if kind == "kinematic" else 3000.0
+        steer = 0.1 if kind == "kinematic" else 0.03
+        n1 = fields["U_ref"].shape[1]
+        fields["U_ref"][2] = np.stack([rng.uniform(0, f, n1), rng.uniform(-f, 0, n1),
+                                       rng.uniform(-steer, steer, n1)], 1).astype(np.float32)
+        with jax.default_matmul_precision("highest"):
+            data, _ = jax.jit(jax.vmap(mpc._build_qp))(
+                MPCInput(**{k: jnp.asarray(v) for k, v in fields.items()}))
+        out.update({f"{kind}_inp_{k}": v for k, v in fields.items()})
+        out.update({f"{kind}_{k}": np.asarray(v) for k, v in data._asdict().items()})
+    return out
+
+
+def compute_nl(case: str) -> dict:
+    """A nonlinear-row fixture: the inputs (``inp_<field>``), the
+    reference's runs on them and on moved copies (``NL_MOVED``, a batch
+    ``NL_BATCH_MOVED``: ``U_runs``,
+    ``X_runs``, ``obj_runs``, ``solved_runs``; a batch case also
+    ``r_prim``/``r_dual`` of its first run), the friction-ellipse residual
+    of each run of a double-track case (``ell_runs``), and a SQP case's
+    run without the constraint rows (``U_free``, ``X_free``)."""
+    _jax_on_cpu()
+    import jax
+    import jax.numpy as jnp
+    from chip_smoke import (
+        NL_BATCH_MOVED, NL_DT, NL_DT_BATCH, NL_KIN, NL_MOVED, dt_batch_states, dt_corner)
+    from racing_lmpc_tpu.mpc.racing_mpc import MPCInput
+
+    kind, solve = NL_CASES[case]
+    c = NL_KIN if kind == "kinematic" else NL_DT
+    n = NL_DT_BATCH["n"] if solve == "batch" else c["n"]
+    model, track, mpc = nl_problem(kind, n)
+    if kind == "kinematic":
+        x_ics = np.asarray([c["x_ic"]])
+    else:
+        s_corner = dt_corner(track)
+        x_ics = (dt_batch_states(s_corner) if solve == "batch" else
+                 np.asarray([[s_corner - c["before_corner"], 0, 0, 0, 0, c["v0"]]]))
+    fields = [nl_input(mpc, track, x, x[mpc.idx_vel], c["v_target"], c["dt"])
+              for x in x_ics]
+    fields = {k: np.stack([f[k] for f in fields]) for k in fields[0]}
+    if solve == "sqp":
+        fields = {k: v[0] for k, v in fields.items()}
+    moved = NL_BATCH_MOVED if solve == "batch" else NL_MOVED
+    runs_in = [fields] + [_moved_fields(fields, s) for s in range(moved)]
+
+    def as_input(f):
+        return MPCInput(**{k: jnp.asarray(v) for k, v in f.items()})
+    out = {f"inp_{k}": v for k, v in fields.items()}
+    if solve == "batch":
+        B = len(x_ics)
+        z0 = jnp.zeros((B, mpc.layout.n), jnp.float32)
+        no_warm = jnp.zeros((B,), bool)
+        runs = [mpc.solve_batch(as_input(f), z0, no_warm)[0] for f in runs_in]
+        out.update(r_prim=np.asarray(runs[0].r_prim), r_dual=np.asarray(runs[0].r_dual))
+    else:
+        runs = [mpc.solve_sqp(as_input(f), iters=c["sqp_iters"])[0] for f in runs_in]
+        free_model, _, free_mpc = nl_problem(kind, n, free=True)
+        free, _ = free_mpc.solve_sqp(as_input(fields), iters=c.get("free_iters", c["sqp_iters"]))
+        out.update(U_free=np.asarray(free.U_optm), X_free=np.asarray(free.X_optm))
+        if kind == "double_track":
+            out["ell_free"] = _ellipse_max(model, free.X_optm, free.U_optm)
+    out.update(U_runs=np.stack([np.asarray(r.U_optm) for r in runs]),
+               X_runs=np.stack([np.asarray(r.X_optm) for r in runs]),
+               obj_runs=np.stack([np.asarray(r.obj) for r in runs]),
+               solved_runs=np.stack([np.asarray(r.solved) for r in runs]),
+               scale_u=np.asarray(mpc.scale_u), scale_x=np.asarray(mpc.scale_x))
+    if kind == "double_track":
+        out["ell_runs"] = np.stack([_ellipse_max(model, r.X_optm, r.U_optm) for r in runs])
+        out["s_corner"] = np.float64(s_corner)
+    return out
+
+
+def reference_model_ctrl_run(case: str, n: int, cycles: int,
+                             move_seed: int | None = None) -> dict:
+    """The reference's closed loop of tests/test_closed_loop.py:145-219
+    (``chip_smoke.MODEL_CTRL_CASES[case]``) at horizon ``n`` for ``cycles``
+    plant steps after the first controller step.  With ``move_seed``,
+    every state handed to the controller is scaled by 1 + 2e-7 N(0, 1)
+    (numpy seed ``move_seed``), about one f32 rounding.  Returns per
+    controller step what ``reference_ctrl_run`` returns (``x_ctrl``,
+    ``u_ic``, ``u_apply``, ``obj``, ``used_fallback``) and the plant's state
+    after each step (``x_plant``)."""
+    _jax_on_cpu()
+    from chip_smoke import MODEL_CTRL_CASES
+    from racing_lmpc_tpu import config as jc
+    from racing_lmpc_tpu.control.loop import MPCController
+    from racing_lmpc_tpu.models.factory import load_vehicle_model
+    from racing_lmpc_tpu.sim import RacingSimulator
+    from racing_lmpc_tpu.track import RacingTrajectory
+
+    kind, _, dt, _, x0 = MODEL_CTRL_CASES[case]
+    name, yaml = {"kinematic": ("kinematic_bicycle_model", "barc_single_track"),
+                  "double_track": ("double_track_planar_model", "barc_double_track")}[kind]
+    model = load_vehicle_model(name, jc.load_ros_params(
+        jc.PARAM_DIR / "barc_base.param.yaml", jc.PARAM_DIR / f"{yaml}.param.yaml"))
+    track = RacingTrajectory.from_file(jc.TRACK_DIR / "barc" / "02_barc_center.txt")
+    r3 = (1e-3, 0, 0, 0, 1e-3, 0, 0, 0, 1.0)
+    rd3 = (1e-2, 0, 0, 0, 1e-2, 0, 0, 0, 1.0)
+    cfg = jc.barc_mpc_config("barc_tracking_mpc", n=n, learning=False, step_mode="step",
+                             r=r3, r_d=rd3, x_max=(), x_min=(), u_max=(), u_min=())
+    ctrl = MPCController(cfg, model, track, dt)
+    sim = RacingSimulator(jc.SimulatorConfig(dt=dt, x0=x0), model, track)
+    rng = np.random.default_rng(move_seed) if move_seed is not None else None
+    rows, plant = [], []
+
+    def step(u_ic):
+        x = np.asarray(sim.x, np.float32)
+        if rng is not None:
+            x = (x * (1 + 2e-7 * rng.standard_normal(x.shape))).astype(np.float32)
+        info = ctrl.step(x, u_ic=u_ic)
+        u = np.zeros(model.nu, np.float32) if u_ic is None else np.asarray(u_ic, np.float32)
+        rows.append((x, u, np.asarray(info.u_apply, np.float32), float(info.output.obj),
+                     bool(info.used_fallback)))
+        return info
+    info = step(None)
+    for _ in range(cycles):
+        sim.step(info.u_base)
+        plant.append(np.asarray(sim.x, np.float64))
+        info = step(info.u_apply)
+    x, u, ua, obj, fb = zip(*rows)
+    return {"x_ctrl": np.stack(x), "u_ic": np.stack(u), "u_apply": np.stack(ua),
+            "obj": np.asarray(obj, np.float32), "used_fallback": np.asarray(fb),
+            "x_plant": np.stack(plant), "scale_u": np.asarray(ctrl.mpc.scale_u)}
+
+
+def compute_model_ctrl(case: str) -> dict:
+    """A closed-loop fixture of the nonlinear-row models: the reference run
+    and its moved re-runs (seeds 1, 2, ...) stacked on a leading run axis."""
+    _jax_on_cpu()
+    from chip_smoke import MODEL_CTRL_CASES
+    base, n, cycles, moved = MODEL_CTRL_FIXTURES[case]
+    _, n0, _, cycles0, _ = MODEL_CTRL_CASES[base]
+    n, cycles = n or n0, cycles or cycles0
+    runs = [reference_model_ctrl_run(base, n, cycles, move_seed=s or None)
+            for s in range(moved + 1)]
+    out = {k: np.stack([r[k] for r in runs]) for k in runs[0] if k != "scale_u"}
+    out.update(scale_u=runs[0]["scale_u"], n=np.int64(n))
+    return out
+
+
 def compute(case: str) -> dict:
     """The fixture's arrays: ``inp_<field>`` (the MPCInput), the reference's
     ``U_optm``, ``obj``, ``solved``, ``r_prim``, ``r_dual``, the same
@@ -482,9 +748,16 @@ def compute(case: str) -> dict:
 
 def main() -> None:
     FIXTURE_DIR.mkdir(parents=True, exist_ok=True)
-    for case in sys.argv[1:] or [*CASES, *CTRL_CASES, *ADMM_CASES, *CONT_CASES, "stack"]:
+    for case in sys.argv[1:] or [*CASES, *CTRL_CASES, *ADMM_CASES, *CONT_CASES, "stack",
+                                 *NL_CASES, *MODEL_CTRL_FIXTURES]:
         path = fixture_path(case)
-        if case in CTRL_CASES:
+        if case == "nl_qp_n10":
+            arrays = compute_nl_qp()
+        elif case in NL_CASES:
+            arrays = compute_nl(case)
+        elif case in MODEL_CTRL_FIXTURES:
+            arrays = compute_model_ctrl(case)
+        elif case in CTRL_CASES:
             arrays = compute_ctrl(case)
         elif case in ADMM_CASES:
             arrays = compute_admm(case)
