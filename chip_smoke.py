@@ -137,6 +137,12 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def rel_diff(got, want) -> float:
+    """max |got - want| relative to max(1, max |want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median wall time of ``fn`` on the card in ms: CUDA events around
     each repetition, synchronized after every one."""
@@ -860,8 +866,9 @@ def closed_loop(device, scenario: str, steps: int, regression=None):
     """``steps`` lock-step cycles of the port's co-simulation of a launch
     scenario (with the error-dynamics regression when ``regression`` is
     given), the launch counts set to 0 just before and read just after.
-    Returns the co-simulation, the launches, and per cycle the plant's
-    abscissa, lateral offset and lap after the cycle."""
+    Returns the co-simulation, the launches, the fallbacks, the median
+    cycle ms after the bootstrap, per cycle the plant's abscissa and lap
+    after the cycle, and per cycle the published (u_a, u_steer)."""
     import torch
     from racing_lmpc_torch.control import RegressionSpec
     from racing_lmpc_torch.launch.runner import _SCENARIOS, CoSimulation
@@ -869,9 +876,11 @@ def closed_loop(device, scenario: str, steps: int, regression=None):
     if regression is not None:
         cs.controller.regression = RegressionSpec(*regression)
     zero_launches()
-    plant = []
+    plant, acts = [], []
     for _ in range(steps):
-        msg = cs.plant_cycle(cs.controller_cycle(cs.vehicle_state_msg()))
+        act = cs.controller_cycle(cs.vehicle_state_msg())
+        acts.append((act.u_a, act.u_steer))
+        msg = cs.plant_cycle(act)
         plant.append((msg.p.s, msg.p.x_tran, cs.lap_num))
     torch.cuda.synchronize()
     launches = read_launches()
@@ -892,7 +901,7 @@ def closed_loop(device, scenario: str, steps: int, regression=None):
           f"(bootstrap) {ms[0]:.1f}, median after {np.median(ms[1:]):.1f} (min "
           f"{ms[1:].min():.1f}, max {ms[1:].max():.1f}); loop period "
           f"{cs.spec.dt * 1e3:.0f} ms, solver cap 85 ms", flush=True)
-    return cs, launches, fallbacks, float(np.median(ms[1:])), s, lap
+    return cs, launches, fallbacks, float(np.median(ms[1:])), s, lap, np.asarray(acts)
 
 
 def progress_gates(case: str, fx, fallbacks: int, prog: float) -> None:
@@ -918,19 +927,21 @@ def progress_gates(case: str, fx, fallbacks: int, prog: float) -> None:
     check(gap <= limit, f"{case}: final progress {gap:.3e} m from every reference run")
 
 
-def drive_controller(device, case: str) -> tuple[dict, float, float, tuple]:
+def drive_controller(device, case: str) -> tuple[dict, float, float, np.ndarray, tuple]:
     """The controller path of fixture ``case``: the port's closed loop,
     checked against the stored reference runs (on the track every cycle,
     ``progress_gates``) and a profiled cycle.  Returns the launches, the
-    median cycle ms, the idle share of the profiled cycle and the path's
-    teacher-forced replays for ``settle_replays``: held to the reference's
+    median cycle ms, the idle share of the profiled cycle, the published
+    (u_a, u_steer) per cycle and the path's teacher-forced replays for
+    ``settle_replays``: held to the reference's
     own spread (and, with the regression, each cycle's dA/dB/dC to the
     spread between the reference's runs)."""
     scenario, steps = CTRL_CASES[case]
     regression = CTRL_REGRESSION.get(case)
     fx = ctrl_fixture(case)
     check(fx["x_ctrl"].shape[1] == steps, f"{case}: fixture has fewer cycles")
-    cs, launches, fallbacks, cycle_ms, s, lap = closed_loop(device, scenario, steps, regression)
+    cs, launches, fallbacks, cycle_ms, s, lap, acts = closed_loop(device, scenario, steps,
+                                                                  regression)
     progress_gates(case, fx, fallbacks, float(lap[-1] * float(fx["total_length"]) + s[-1]))
     print(f"  port u_apply per cycle {[np.round(t.control, 4).tolist() for t in cs.telemetry]}",
           flush=True)
@@ -949,7 +960,7 @@ def drive_controller(device, case: str) -> tuple[dict, float, float, tuple]:
                       f"{rows(fx['dA'][0, c, 4:, 3:])}; dC[4:] port {rows(port[0]['dC'][c, 4:])} "
                       f"reference {rows(fx['dC'][0, c, 4:])}", flush=True)
         check(not failed, f"{case}: outside the reference's own spread on {failed}")
-    return launches, cycle_ms, idle, (case, CTRL_REPLAYS[case], held_replays)
+    return launches, cycle_ms, idle, acts, (case, CTRL_REPLAYS[case], held_replays)
 
 
 def drive_tracking(device, steps: int = 5) -> dict:
@@ -1623,6 +1634,335 @@ def drive_model_controller(device, case: str) -> tuple[dict, float, float, tuple
     return launches, cycle_ms, idle, (case, MODEL_CTRL_REPLAYS, held_replays)
 
 
+# the bus phase: cycles of BusCoSimulation of the barc_lmpc scenario at its
+# shipped widths, compared with the first cycles of the CoSimulation path;
+# then one cycle timed on the main thread and on the bus's thread in turns
+BUS_CYCLES = 10
+BUS_TURNS = 4
+# the LU phase: seeded QPs through solve_qp_ip without eq_rows, on the card
+# against the CPU, each gate's limit the CPU's own worst reading between its
+# runs on the batch and LU_MOVED copies with q moved by one f32 rounding, or
+# the gate's floor where that is looser
+LU_QPS = (16, 12, 20, 4)          # batch, n, m, equality rows
+LU_MOVED = 8
+LU_FLOORS = {"x": 5e-4, "objective": 1e-5}
+
+
+def build_native_async():
+    """Start building the native host runtime from its source with g++, on
+    a thread beside the kernels' nvcc builds; the returned function waits
+    for it, raises if it failed, and returns its seconds (None when the
+    library was already built)."""
+    import threading
+    from racing_lmpc_torch import native
+    fresh = not native.library_path().exists()
+    done = {}
+
+    def run():
+        t = time.perf_counter()
+        native.available()
+        done["s"] = time.perf_counter() - t
+
+    th = threading.Thread(target=run)
+    th.start()
+
+    def wait():
+        th.join()
+        check(native.available(), f"native runtime: {native.build_error()}")
+        return done["s"] if fresh else None
+    return wait
+
+
+def drive_native(build_s: float | None) -> None:
+    """The native host runtime, built at set-up (``build_native_async``):
+    its table loader against ``np.loadtxt`` on the BARC track; its KD-tree's
+    projection seeds against the brute-force ones on the track's waypoints
+    and on seeded points between them."""
+    from racing_lmpc_torch import native
+    from racing_lmpc_torch.config import TRACK_DIR
+    from racing_lmpc_torch.track import RacingTrajectory
+    path = TRACK_DIR / "barc" / "02_barc_center.txt"
+    table = native.load_table(path)
+    check(np.array_equal(table, np.loadtxt(path)), "native table loader differs from np.loadtxt")
+    track = RacingTrajectory(table, device="cpu")
+    brute = RacingTrajectory(table, device="cpu", use_native=False)
+    rng = np.random.default_rng(0)
+    wp = track._wp_xy_np
+    between = wp + rng.uniform(0.05, 0.95, (len(wp), 1)) * (np.roll(wp, -1, 0) - wp) \
+        + rng.normal(size=wp.shape) * 0.05
+    q = np.concatenate([wp, between])
+    got, want = track.nearest_waypoint_abscissa_np(q), brute.nearest_waypoint_abscissa_np(q)
+    check(np.array_equal(got, want),
+          f"KD-tree seeds differ from brute force at {np.flatnonzero(got != want)}")
+    built = (f"built with {native.CXX} in {build_s:.1f} s" if build_s is not None
+             else "found built")
+    print(f"native runtime: {built} ({native.library_path().name}); table {table.shape} "
+          f"equals np.loadtxt; KD-tree seeds equal brute force on {len(wp)} waypoints and "
+          f"{len(between)} points between", flush=True)
+
+
+def drive_bus(device, cosim_acts: np.ndarray, cosim_ms: float) -> dict:
+    """``BusCoSimulation`` of ``barc_lmpc`` at its shipped widths, the
+    controller cycle running on the bus's dispatch thread: ``BUS_CYCLES``
+    cycles with the launch counts set to 0 just before and read just after,
+    held to the barc_lmpc path's closed-loop gates (on the track every
+    cycle; no more fallbacks than the reference's runs allow over these
+    cycles), its actuations beside the first cycles of the script's own
+    ``CoSimulation`` run, its cycle time beside that run's; then
+    ``bus_thread_turns``."""
+    import struct
+    import torch
+    from racing_lmpc_torch.launch.runner import _SCENARIOS, BusCoSimulation
+    sim = BusCoSimulation(_SCENARIOS["barc_lmpc"], device=device)
+    cs = sim.cs
+    plant, acts = [], []
+    sim.bus.subscribe("vehicle_actuation", lambda t, p: acts.append(
+        struct.unpack(BusCoSimulation.ACT_FMT, p)[1:]))
+    plant_cycle = cs.plant_cycle
+
+    def recording_plant(act):
+        msg = plant_cycle(act)
+        plant.append((msg.p.s, msg.p.x_tran))
+        return msg
+    cs.plant_cycle = recording_plant
+    zero_launches()
+    try:
+        summary = sim.run(BUS_CYCLES, timeout_s=600.0)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        sim.bus.flush()
+        turns = bus_thread_turns(sim)
+    finally:
+        sim.close()
+    check(summary["steps"] == BUS_CYCLES, f"bus: {summary['steps']} cycles")
+    check(launches["chol_tri_inv"] > 0, "bus: chol_tri_inv never launched")
+    check(launches["gj_inverse"] == 0, "bus: gj_inverse launched on the path")
+    for i, t in enumerate(cs.telemetry):
+        check(np.isfinite(t.control).all() and np.isfinite(t.cost), f"bus: cycle {i} not finite")
+    s, x_tran = (np.asarray(v) for v in zip(*plant))
+    inside = (x_tran <= cs.track.left_boundary_np(s)) & (x_tran >= cs.track.right_boundary_np(s))
+    check(bool(inside.all()), f"bus: off the track at cycles {np.flatnonzero(~inside)}")
+    fx = ctrl_fixture("ctrl_barc_lmpc")
+    ref_fb = fx["used_fallback"][:, :BUS_CYCLES].sum(axis=1)
+    allowed = int(ref_fb[0] + ref_fb.max() - ref_fb.min())
+    fallbacks = sum(not t.solved for t in cs.telemetry)
+    check(fallbacks <= allowed, f"bus: {fallbacks} fallbacks, reference allows {allowed}")
+    acts = np.asarray(acts)
+    d = np.abs(acts - cosim_acts[:BUS_CYCLES]).max(axis=0)
+    ms = np.array([t.solve_time * 1e3 for t in cs.telemetry])
+    print(f"path bus_barc_lmpc: {BUS_CYCLES} cycles over the native bus "
+          f"({summary['bus_messages']} messages), launches {launches} "
+          f"({launches['chol_tri_inv'] / BUS_CYCLES:.1f} chol_tri_inv per cycle); fallbacks "
+          f"{fallbacks} (allowed {allowed}); on the track every cycle; max |du_a| {d[0]:.3e}, "
+          f"max |du_steer| {d[1]:.3e} from the CoSimulation run's first {BUS_CYCLES} cycles; "
+          f"cycle wall ms: first (bootstrap) {ms[0]:.1f}, median after "
+          f"{np.median(ms[1:]):.1f} (the CoSimulation path's 20 cycles: {cosim_ms:.1f})",
+          flush=True)
+    print(f"  one controller cycle in turns, {BUS_TURNS} times on each thread: median "
+          f"{np.median(turns['main']):.1f} ms on the main thread, "
+          f"{np.median(turns['bus']):.1f} ms on the bus's thread "
+          f"({ {k: np.round(v, 1).tolist() for k, v in turns.items()} })", flush=True)
+    return launches
+
+
+def bus_thread_turns(sim) -> dict:
+    """The same controller cycle (the bus run's last state, with the
+    controller's state put back before each) timed on the main thread and
+    on the bus's dispatch thread, ``BUS_TURNS`` times each in turns, after
+    one warm-up on each: whether the thread the cycle runs on costs time.
+    Returns the ms of each turn by thread."""
+    import threading
+    cs = sim.cs
+    ctrl = cs.controller
+    state, u0 = ctrl.state, cs._u_prev.copy()
+    msg = cs.vehicle_state_msg()
+    x = np.asarray([msg.p.s, msg.p.x_tran, msg.p.e_psi, msg.v.v_long, msg.v.v_tran,
+                    msg.w.w_psi], dtype=np.float32)
+
+    def cycle():
+        ctrl.state = state
+        t = time.perf_counter()
+        ctrl.step(x, u_ic=u0).u_apply.cpu()
+        return (time.perf_counter() - t) * 1e3
+
+    done, out = threading.Event(), []
+
+    def on_turn(topic, payload):
+        try:
+            out.append(cycle())
+        except BaseException as e:     # re-raised on the driving thread
+            out.append(e)
+        done.set()
+    sim.bus.subscribe("turn", on_turn)
+
+    def on_bus():
+        done.clear()
+        sim.bus.publish("turn", b"")
+        check(done.wait(300.0), "bus: a timed turn did not come back")
+        got = out.pop()
+        if isinstance(got, BaseException):
+            raise got
+        return got
+
+    cycle()
+    on_bus()
+    turns = {"main": [], "bus": []}
+    for r in range(BUS_TURNS):
+        order = [("main", cycle), ("bus", on_bus)]
+        for name, fn in (order if r % 2 == 0 else order[::-1]):
+            turns[name].append(fn())
+    return {k: np.asarray(v) for k, v in turns.items()}
+
+
+def drive_scaleout(device) -> dict:
+    """Scale-out at world size 1 on NCCL: the flagship batch
+    (``barc_n20_k48_b256``) through ``sharded_batch_solver`` held with that
+    path's batched gates, its flags equal to the unsharded solve's lane by
+    lane and its controls within 1e-5 relative; ``sharded_metrics`` against
+    the flags' mean and the masked minimum (and the all-reduce timed);
+    ``scaling_bench``; ``dryrun_multichip(1)``.  The process group is gone
+    when this returns.  Returns the sharded solve's launches."""
+    import torch
+    import torch.distributed as dist
+    from racing_lmpc_torch.benchmarks import build_barc_lmpc, make_scenario_batch, scaling_bench
+    from racing_lmpc_torch.entry import dryrun_multichip
+    from racing_lmpc_torch.parallel import sharded_batch_solver, sharded_metrics
+    from racing_lmpc_torch.parallel.distributed import (
+        global_mesh, initialize, process_allgather, shard_batch_global)
+    from racing_lmpc_torch.parallel.spawn import free_port
+    case = "barc_n20_k48_b256"
+    fx = load_batch_fixture(case)
+    n_horizon, num_ss, per_lap, batch = CASES[case]
+    initialize(f"127.0.0.1:{free_port()}", 1, 0, device)
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, not nccl")
+        _, track, _, mpc, manager = build_barc_lmpc(n_horizon, num_ss, per_lap, device=device)
+        inp = make_scenario_batch(mpc, track, manager, batch=batch, device=device)
+        z = torch.zeros((batch, mpc.layout.n))
+        valid = torch.zeros((batch,), dtype=torch.bool)
+        mesh = global_mesh()
+        args = tuple(shard_batch_global(x, mesh) for x in (inp, z, valid))
+        solver = sharded_batch_solver(mpc, mesh)
+        zero_launches()
+        out, _ = solver(*args)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check(0 < launches["chol_tri_inv"] <= 150,
+              f"sharded: chol_tri_inv launches {launches['chol_tri_inv']} not in (0, 150]")
+        check(launches["gj_inverse"] == 0, "sharded: gj_inverse launched on the path")
+        U, solved, obj = process_allgather((out.U_optm, out.solved, out.obj))
+        whole, _ = mpc.solve_batch(inp)
+        check(np.array_equal(solved, whole.solved.cpu().numpy()),
+              "sharded: solved flags differ from the unsharded solve")
+        err = rel_diff(U, whole.U_optm.cpu().numpy())
+        check(err <= 1e-5, f"sharded: U_optm {err:.3e} from the unsharded solve")
+        limits = gate_limits(fx)
+        failed = held_to_reference(runs_like_reference(mpc, inp, fx, first=out), fx, limits,
+                                   f"sharded {case} vs reference")
+        check(not failed, f"sharded {case}: outside the reference's own spread on {failed}")
+        frac, cmin = sharded_metrics(out.solved, out.obj, mesh)
+        check(float(frac) == float(np.mean(solved)) and float(cmin) == float(obj[solved].min()),
+              f"sharded_metrics ({float(frac)}, {float(cmin)}) differ from the flags' mean "
+              f"and the masked minimum")
+        # sharded and unsharded in turns: unsharded, sharded, sharded, unsharded
+        turns = [("unsharded", lambda: mpc.solve_batch(inp)), ("sharded", lambda: solver(*args))]
+        times = {"unsharded": [], "sharded": []}
+        for name, fn in turns + turns[::-1]:
+            times[name].append(cuda_time_ms(fn, reps=3, warmup=1))
+        ms, ms_whole = np.mean(times["sharded"]), np.mean(times["unsharded"])
+        metrics_ms = cuda_time_ms(lambda: sharded_metrics(out.solved, out.obj, mesh), reps=50)
+        print(f"path sharded_{case}: world size 1 on NCCL, launches {launches}; flags equal "
+              f"the unsharded solve's, U_optm {err:.1e} from it; within the reference's "
+              f"spread; {ms:.1f} ms per batch, {batch / (ms / 1e3):.1f} solves/s (in turns "
+              f"with the unsharded solve: {ms_whole:.1f} ms, {batch / (ms_whole / 1e3):.1f} "
+              f"solves/s; {times}); sharded_metrics {metrics_ms:.4f} ms a call (two "
+              f"all-reduces); solved {float(frac):.4f}, min objective {float(cmin):.6f}",
+              flush=True)
+        t = time.perf_counter()
+        bench = scaling_bench(device_counts=[1], batch_per_device=256)
+        print(f"scaling_bench (world size 1, {time.perf_counter() - t:.1f} s): "
+              f"{json.dumps(bench)}", flush=True)
+        check(bench[0]["solved_fraction"] > 0.9, "scaling_bench: solved fraction")
+    finally:
+        dist.destroy_process_group()
+    t = time.perf_counter()
+    dryrun_multichip(1)
+    print(f"dryrun_multichip(1): three phases in one NCCL rank, {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return launches
+
+
+def lu_moved(arrays: list, s: int) -> list:
+    """QP data (P, q, A, l, u) with q scaled by 1 + 2e-7 N(0, 1) from numpy
+    seed 1 + s: about one f32 rounding."""
+    rng = np.random.default_rng(1 + s)
+    q = arrays[1] * (1 + 2e-7 * rng.standard_normal(arrays[1].shape))
+    return [arrays[0], q.astype(np.float32), *arrays[2:]]
+
+
+def lu_reading(a: dict, b: dict) -> dict:
+    """How far LU-branch solutions ``a`` lie from ``b`` (dicts of ``x``,
+    ``obj``): each relative to max(1, max |b|)."""
+    return {"x": rel_diff(a["x"], b["x"]), "objective": rel_diff(a["obj"], b["obj"])}
+
+
+def lu_limits(runs: list[dict]) -> dict:
+    """Each LU gate's limit: the worst reading between any two of ``runs``,
+    or the gate's floor where that is looser."""
+    readings = [lu_reading(a, b) for i, a in enumerate(runs)
+                for j, b in enumerate(runs) if i != j]
+    return {k: max(floor, *(r[k] for r in readings)) for k, floor in LU_FLOORS.items()}
+
+
+def drive_lu(device) -> None:
+    """The IPM's pivoted-LU branch (``solve_qp_ip`` without ``eq_rows``) on
+    a seeded QP batch and its moved copies on the card, against the same
+    solves on the CPU: every QP converges on both, and the median of the
+    card's readings stays within the CPU's own spread (``lu_limits``).  It
+    launches no kernel of the port (its LU is torch's, as the reference's
+    is jax.scipy's)."""
+    import torch
+    from racing_lmpc_torch.mpc.ipm import solve_qp_ip
+    from racing_lmpc_torch.mpc.qp import QPData
+    B, n, m, me = LU_QPS
+    rng = np.random.default_rng(12)
+    M = rng.normal(size=(B, n, n))
+    P = np.einsum("bij,bik->bjk", M, M) / n + 0.1 * np.eye(n)
+    A = rng.normal(size=(B, m, n))
+    f = np.einsum("bmn,bn->bm", A, rng.normal(size=(B, n)) * 0.3)
+    l, u = f - rng.uniform(0.1, 1.0, (B, m)), f + rng.uniform(0.1, 1.0, (B, m))
+    l[:, :me] = u[:, :me] = f[:, :me]
+    l[:, me:me + 2] = -np.inf
+    u[:, me + 2] = np.inf
+    arrays = [a.astype(np.float32) for a in (P, rng.normal(size=(B, n)), A, l, u)]
+    inputs = [arrays] + [lu_moved(arrays, s) for s in range(LU_MOVED)]
+    runs = {}
+    zero_launches()
+    for dev in ("cpu", device):
+        runs[str(dev)] = []
+        for data in inputs:
+            sol = solve_qp_ip(QPData(*(torch.as_tensor(a, device=dev) for a in data)), iters=25)
+            check(bool((sol.rp_rel.cpu() < 1e-3).all() & (sol.rd_rel.cpu() < 1e-3).all()),
+                  f"LU branch on {dev}: not every QP converged")
+            runs[str(dev)].append({"x": sol.x.cpu().numpy(), "obj": sol.obj.cpu().numpy()})
+    torch.cuda.synchronize()
+    check(read_launches() == {"chol_tri_inv": 0, "gj_inverse": 0}, "LU branch launched a kernel")
+    limits = lu_limits(runs["cpu"])
+    got = [lu_reading(a, b) for a, b in zip(runs[str(device)], runs["cpu"])]
+    print(f"LU branch: {B} QPs (n={n}, m={m}, {me} equality rows) and {LU_MOVED} moved "
+          f"copies, every one converged on the card and on the CPU; card vs CPU:", flush=True)
+    failed = []
+    for k, lim in limits.items():
+        vals = np.array([r[k] for r in got])
+        ok = np.median(vals) <= lim
+        print(f"  {k}: median {np.median(vals):.3e} (runs {vals.min():.3e}..{vals.max():.3e}), "
+              f"limit {lim:.3e} (the CPU's own spread or floor {LU_FLOORS[k]:.0e}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(k)
+    check(not failed, f"LU branch: the card outside the CPU's own spread on {failed}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1643,8 +1983,10 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
+    native_build = build_native_async()
     logs = _kernels.build()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    native_s = native_build()
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1659,8 +2001,10 @@ def main() -> int:
     per_path["barc_n40_k96_b128"] = drive_path(device, "barc_n40_k96_b128")[0]
     # each controller path's replays, the longest first (settle_replays)
     pending = []
+    cosim = {}
     for case in ("ctrl_barc_lmpc", "ctrl_putnam_short_lmpc"):
-        per_path[case], *_, replays = drive_controller(device, case)
+        per_path[case], cycle_ms, _, acts, replays = drive_controller(device, case)
+        cosim[case] = (acts, cycle_ms)
         pending.insert(0, replays)
     per_path["barc_tracking_mpc"] = drive_tracking(device)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1680,6 +2024,12 @@ def main() -> int:
     for case in MODEL_CTRL_CASES:
         per_path[case], *_, replays = drive_model_controller(device, case)
         pending.insert(1, replays)
+    print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
+    drive_native(native_s)
+    per_path["bus_barc_lmpc"] = drive_bus(device, *cosim["ctrl_barc_lmpc"])
+    # the process group is destroyed before the replays spawn their processes
+    per_path["sharded_barc_n20_k48_b256"] = drive_scaleout(device)
+    drive_lu(device)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
     settle_replays(pending)
     print(f"replays done in {time.perf_counter() - t0:.1f} s", flush=True)

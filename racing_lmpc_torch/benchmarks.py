@@ -1,6 +1,7 @@
 """Benchmark scenarios: batched BARC LMPC problems.
 
-Port of ``racing_lmpc_tpu/benchmarks.py:29-95``.  A "scenario" is one full
+Port of ``racing_lmpc_tpu/benchmarks.py`` (the builders and
+``scaling_bench``).  A "scenario" is one full
 LMPC solve: an initial state somewhere on the BARC track, a rolled reference
 over the horizon, boundary/curvature/velocity data, and a fixed-K safe-set
 batch from the recorded laps.  Scenarios are built on the host with numpy
@@ -95,3 +96,74 @@ def make_scenario_batch(mpc: RacingMPC, track, manager, batch: int,
         ss_x=dev(ss_x),
         ss_j=dev(ss_j),
     )
+
+
+def scaling_bench(device_counts=None, batch_per_device: int = 64,
+                  n_horizon: int = 20, num_ss: int = 48, reps: int = 5):
+    """Weak-scaling benchmark (``benchmarks.py:98-143``): the batch grows
+    with the rank count, so perfect scaling keeps the per-batch latency
+    constant (efficiency = t_1 / t_N).
+
+    Called by every rank of an initialized process group
+    (``parallel.distributed.initialize``); ``device_counts`` are mesh sizes
+    up to the group's (by default 1, 2, 4, ... up to it).  For each size the
+    first ranks form a 1-D mesh, each solves its shard of a
+    ``batch_per_device * size`` batch once to warm up and then ``reps``
+    times, synchronizing its device after every repetition; a size's
+    latency is the slowest rank's mean.  Returns the same list of dicts on
+    every rank.
+    """
+    import time
+    import torch.distributed as dist
+    from racing_lmpc_torch.parallel import (
+        make_mesh, shard_batch, sharded_batch_solver, sharded_metrics)
+    from racing_lmpc_torch.parallel.mesh import mesh_device
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if device_counts is None:
+        device_counts = [d for d in (1, 2, 4, 8, 16, 32) if d <= world]
+    results = []
+    t1 = None
+    problem = None
+    for nd in device_counts:
+        mesh = make_mesh(range(nd))        # collective: every rank builds it
+        device = mesh_device(mesh)
+        stats = torch.zeros(2, dtype=torch.float64, device=device)
+        if rank < nd:
+            if problem is None:
+                problem = build_barc_lmpc(n_horizon=n_horizon, num_ss=num_ss,
+                                          device=device)
+            _, track, _, mpc, manager = problem
+            batch = batch_per_device * nd
+            inp = make_scenario_batch(mpc, track, manager, batch, device=device)
+            z = torch.zeros((batch, mpc.layout.n), dtype=torch.float32)
+            valid = torch.zeros((batch,), dtype=torch.bool)
+            args = tuple(shard_batch(x, mesh) for x in (inp, z, valid))
+            solver = sharded_batch_solver(mpc, mesh)
+
+            def sync():
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+            out, _ = solver(*args)
+            sync()
+            total = 0.0
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                out, _ = solver(*args)
+                sync()
+                total += time.perf_counter() - t0
+            frac, _ = sharded_metrics(out.solved, out.obj, mesh)
+            stats[0], stats[1] = total / reps, float(frac)
+        dist.all_reduce(stats, op=dist.ReduceOp.MAX)
+        t, frac = float(stats[0]), float(stats[1])
+        if t1 is None:
+            t1 = t
+        results.append({
+            "devices": nd,
+            "batch": batch_per_device * nd,
+            "batch_latency_ms": round(t * 1e3, 2),
+            "solves_per_s": round(batch_per_device * nd / t, 1),
+            "weak_scaling_efficiency": round(t1 / t, 4),
+            "solved_fraction": round(frac, 4),
+        })
+    return results

@@ -6,10 +6,12 @@ from racing_lmpc_torch.control.legacy_lmpc import (
 from racing_lmpc_torch.control.loop import (
     ControllerState, MPCController, RegressionSpec, StepInfo)
 from racing_lmpc_torch.control.pid import PidCoefficients, PidController
-from racing_lmpc_torch.control.telemetry import CycleProfiler, Logger, LogLevel, Profile
+from racing_lmpc_torch.control.telemetry import (
+    CycleProfiler, Logger, LogLevel, Profile, ProfilerTrace)
 from racing_lmpc_torch.control.vanilla import VanillaController, VanillaControllerConfig
 
 __all__ = ["ControllerState", "MPCController", "RegressionSpec", "StepInfo",
-           "CycleProfiler", "Logger", "LogLevel", "Profile", "PidController",
+           "CycleProfiler", "Logger", "LogLevel", "Profile", "ProfilerTrace",
+           "PidController",
            "PidCoefficients", "RacingLMPCLegacy", "RacingLMPCLegacyConfig",
            "VanillaController", "VanillaControllerConfig"]

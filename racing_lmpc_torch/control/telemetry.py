@@ -5,15 +5,18 @@ copied): ``CycleProfiler`` is the thread-safe circular window of per-cycle
 measurements of ``lmpc_utils/cycle_profiler.hpp:33-136`` with its
 min/mean/max ``Profile`` and diagnostic status; ``Logger`` is the
 callback-registry logger of ``lmpc_utils/logging.hpp:42-96``, the EKF's
-warning sink.  The reference's ``XprofTrace`` wraps ``jax.profiler`` and has
-no counterpart here.
+warning sink.  ``ProfilerTrace`` is the counterpart of the reference's
+``XprofTrace`` (``:104-128``) on ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import enum
+import os
 import threading
+import time
 from collections import deque
+from pathlib import Path
 from dataclasses import dataclass
 from typing import Callable
 
@@ -99,3 +102,43 @@ class CycleProfiler:
 
     def __len__(self):
         return len(self._buf)
+
+
+class ProfilerTrace:
+    """Context manager capturing a host and device trace with
+    ``torch.profiler`` — the counterpart of the reference's ``XprofTrace``
+    (``racing_lmpc_tpu/control/telemetry.py:104-128``), the tracing side of
+    the reference's DiagnosticArray profiling: wall-clock windows come from
+    CycleProfiler, per-op breakdowns from these traces.
+
+        with ProfilerTrace("/tmp/trace") as tr:
+            solve(...)   # traced
+        tr.path          # the Chrome trace written on exit
+
+    Records CPU activity, and CUDA activity where a CUDA device is present;
+    writes ``<log_dir>/trace_<pid>_<ns>.json`` in the Chrome trace format
+    (chrome://tracing, Perfetto).  ``profiler`` holds the finished
+    ``torch.profiler.profile`` for ``key_averages()``.
+    """
+
+    def __init__(self, log_dir: str | os.PathLike):
+        self.log_dir = Path(log_dir)
+        self.path: Path | None = None
+        self.profiler = None
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        self.profiler = profile(activities=acts)
+        self.profiler.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.profiler.__exit__(*exc)
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.path = self.log_dir / f"trace_{os.getpid()}_{time.time_ns()}.json"
+        self.profiler.export_chrome_trace(str(self.path))
+        return False

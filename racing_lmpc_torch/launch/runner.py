@@ -1,8 +1,9 @@
 """In-process co-simulation of the reference's launch scenarios.
 
 Port of ``racing_lmpc_tpu/launch/runner.py`` (``ScenarioSpec``, the five
-``_SCENARIOS``, ``CoSimulation``, ``ContinuousCoSimulation``, the ``sim_*``
-factories and the command line; parity target
+``_SCENARIOS``, ``CoSimulation``, ``ContinuousCoSimulation``,
+``BusCoSimulation``, the ``sim_*`` factories and the command line; parity
+target
 ``racing_lmpc_launch/launch/{barc,putnam}/*.launch.py``): a simulator in
 the global frame and an MPC controller in the Frenet frame, exchanging the
 reference's messages in lock step ("step" co-simulation mode) or on a
@@ -13,8 +14,6 @@ device (CUDA unless the caller names one); the state message and its
 Frenet projection are built on the host.
 
 Run e.g.:  python -m racing_lmpc_torch.launch.runner barc_lmpc --steps 400
-
-Not ported yet: ``BusCoSimulation`` (it needs the native bus).
 """
 
 from __future__ import annotations
@@ -354,6 +353,110 @@ class ContinuousCoSimulation:
                 [not t.solved for t in cs.telemetry])) if cs.telemetry else 0.0,
             "solve_time": {"min": prof.min, "mean": prof.mean, "max": prof.max},
         }
+
+
+class BusCoSimulation:
+    """Two-node co-simulation over the native pub/sub bus (``runner.py:
+    425-515``): the controller and the simulator run as separate
+    subscribers exchanging ``vehicle_state`` / ``vehicle_actuation``
+    messages, the in-process equivalent of the reference's two ROS2
+    processes over DDS in ``step`` mode — each message triggers the other
+    side (racing_mpc_node.cpp:96-129; racing_simulator_node.cpp:111-142).
+
+    Both nodes run on the bus's dispatch thread, which the native runtime
+    created: the controller cycle launches its kernels from there, with the
+    thread's own torch defaults (grad mode on, the default CUDA stream; the
+    kernel wrappers select the tensors' device themselves).  The driving
+    thread waits on an event, which releases the GIL the callbacks need.
+    An error raised in a node is kept in ``_errors`` and re-raised by
+    ``run``.  Needs the native runtime (``racing_lmpc_torch.native.Bus``),
+    whose build failing raises.
+    """
+
+    STATE_FMT = "<8d"       # t, s, x_tran, e_psi, v_long, v_tran, w_psi, lap
+    ACT_FMT = "<3d"         # t, u_a, u_steer
+
+    def __init__(self, spec: ScenarioSpec, **kw):
+        import struct
+        import threading
+        from racing_lmpc_torch import native
+        self._struct = struct
+        self.cs = CoSimulation(spec, **kw)
+        self.bus = native.Bus()
+        self._remaining = 0
+        self._done = threading.Event()
+        self._errors: list[BaseException] = []
+        self.bus.subscribe("vehicle_state", self._on_state)
+        self.bus.subscribe("vehicle_actuation", self._on_actuation)
+
+    @classmethod
+    def unpack_state(cls, payload: bytes) -> VehicleStateMsg:
+        """The ``vehicle_state`` message a payload of ``STATE_FMT`` carries."""
+        import struct
+        t, s, x_tran, e_psi, v_long, v_tran, w_psi, lap = struct.unpack(
+            cls.STATE_FMT, payload)
+        msg = VehicleStateMsg(t=t)
+        msg.p.s, msg.p.x_tran, msg.p.e_psi = s, x_tran, e_psi
+        msg.v.v_long, msg.v.v_tran = v_long, v_tran
+        msg.w.w_psi = w_psi
+        msg.lap_num = lap
+        return msg
+
+    # -- controller node ------------------------------------------------
+    def _on_state(self, topic: str, payload: bytes):
+        try:
+            if self._remaining <= 0:
+                self._done.set()
+                return
+            act = self.cs.controller_cycle(self.unpack_state(payload))
+            self.bus.publish("vehicle_actuation", self._struct.pack(
+                self.ACT_FMT, act.t, act.u_a, act.u_steer))
+        except BaseException as e:  # surface errors to the driving thread
+            self._errors.append(e)
+            self._done.set()
+
+    # -- simulator node ---------------------------------------------------
+    def _on_actuation(self, topic: str, payload: bytes):
+        try:
+            t, u_a, u_steer = self._struct.unpack(self.ACT_FMT, payload)
+            msg = self.cs.plant_cycle(
+                VehicleActuationMsg(t=t, u_a=u_a, u_steer=u_steer))
+            self._remaining -= 1
+            self._publish_state(msg)
+        except BaseException as e:
+            self._errors.append(e)
+            self._done.set()
+
+    def _publish_state(self, msg: VehicleStateMsg):
+        self.bus.publish("vehicle_state", self._struct.pack(
+            self.STATE_FMT, msg.t, msg.p.s, msg.p.x_tran, msg.p.e_psi,
+            msg.v.v_long, msg.v.v_tran, msg.w.w_psi, msg.lap_num))
+
+    # ---------------------------------------------------------------------
+    def run(self, steps: int, timeout_s: float = 600.0) -> dict:
+        """Kick off the message loop and wait for ``steps`` full cycles."""
+        self._remaining = steps
+        self._done.clear()
+        self._publish_state(self.cs.vehicle_state_msg())
+        if not self._done.wait(timeout_s):
+            raise TimeoutError(f"bus co-simulation did not finish {steps} steps")
+        if self._errors:
+            raise self._errors[0]
+        cs = self.cs
+        prof = cs.profiler.profile()
+        return {
+            "laps": cs.lap_num,
+            "lap_times": cs.lap_times,
+            "steps": len(cs.telemetry),
+            "fallback_rate": float(np.mean(
+                [not t.solved for t in cs.telemetry])) if cs.telemetry else 0.0,
+            "solve_time": {"min": prof.min, "mean": prof.mean, "max": prof.max},
+            "bus_messages": self.bus.delivered,
+        }
+
+    def close(self):
+        """Stop the bus and join its dispatch thread (not from a node)."""
+        self.bus.close()
 
 
 def _make(name: str, **kw) -> CoSimulation:

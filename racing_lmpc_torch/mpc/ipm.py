@@ -20,9 +20,13 @@ dimension where the reference runs under ``vmap``:
   loop itself never synchronizes with the host.
 
 Every constant and every safeguard is the reference's; see its comments for
-the measurements behind them.  The pivoted-LU path the reference keeps for
-callers without ``eq_rows`` is not on the MPC path and is not ported:
-``eq_rows`` (possibly empty) is required.
+the measurements behind them.  A caller without ``eq_rows`` (the MPC path
+always passes them) gets the reference's other branch (``ipm.py:313-330``):
+the equality rows found from the bounds lane by lane, and each Newton
+system solved by a pivoted LU of the full (n + m) KKT with one refinement
+round.  The reference factors it with ``jax.scipy.linalg.lu_factor``, a
+library LU and not a TPU kernel, so the port calls torch's
+(``torch.linalg.lu_factor_ex`` / ``lu_solve``).
 """
 
 from __future__ import annotations
@@ -64,15 +68,17 @@ class _Rows(NamedTuple):
     """The QP's static row structure, on the host (shapes, contiguity
     checks) and on the device (every gather and scatter, so that no index
     array is copied to the device inside the iteration)."""
-    eq: np.ndarray          # equality rows
+    eq: np.ndarray | None   # equality rows; None: found from the bounds
     struct: tuple | None    # (dense_rows, nc, diag_rows, diag_cols)
-    eq_t: Tensor
+    eq_t: Tensor | None
     struct_t: tuple | None
 
     @classmethod
     def make(cls, eq_rows, struct, device):
         def idx(a):
             return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+        if eq_rows is None:         # the row structure needs the eq rows
+            return cls(None, None, None, None)
         eq = np.asarray(eq_rows, dtype=np.int64)
         struct_t = None if struct is None else (
             idx(struct[0]), int(struct[1]), idx(struct[2]), idx(struct[3]))
@@ -236,6 +242,50 @@ def _condensed_solver_factory(P: Tensor, A: Tensor, rows: _Rows, delta: float):
     return make_solver
 
 
+def _lu_solver_factory(P: Tensor, A: Tensor, is_eq: Tensor, delta: float):
+    """Newton-KKT solver factory without known equality rows
+    (``ipm.py:313-330``): ``make_solver(D, delta_p)`` factors the full KKT
+    ``[[H, Aeq'], [Aeq, -diag(delta on eq rows, 1 elsewhere)]]`` with
+    ``H = P + (delta + delta_p) I + A' D A`` by a pivoted LU; ``solve``
+    runs one refinement round against it.  ``is_eq`` (B, m) marks each
+    lane's equality rows (the others get trivial rows, keeping K full-rank).
+    A singular K gives non-finite steps, which the NaN guard rejects."""
+    n = P.shape[-1]
+    dtype, device = P.dtype, P.device
+    I_n = torch.eye(n, dtype=dtype, device=device)
+    A_eq = A * is_eq.to(dtype)[..., None]
+    A_eqT = A_eq.transpose(-1, -2)
+    kkt_22 = torch.diag_embed(-torch.where(is_eq, delta, 1.0).to(dtype))
+    acc = NORMAL_EQ_DTYPE
+    A_acc = A.to(acc)
+
+    def make_solver(D, delta_p=_REG_MIN):
+        dp = delta_p.reshape(-1, 1, 1) if torch.is_tensor(delta_p) else delta_p
+        AtDA = torch.matmul(A_acc.transpose(-1, -2) * D.to(acc)[:, None, :],
+                            A_acc).to(dtype)
+        H = P + (delta + dp) * I_n + AtDA
+        K = torch.cat([torch.cat([H, A_eqT], dim=-1),
+                       torch.cat([A_eq, kkt_22], dim=-1)], dim=-2)
+        LU, piv, _ = torch.linalg.lu_factor_ex(K)
+
+        def lu(rhs):
+            return torch.linalg.lu_solve(LU, piv, rhs[..., None])[..., 0]
+
+        def kmv(v):
+            vx, vy = v[:, :n], v[:, n:]
+            return torch.cat([mv(H, vx) + mv(A_eqT, vy),
+                              mv(A_eq, vx) + mv(kkt_22, vy)], dim=-1)
+
+        def solve(r1, r2, refine=True):
+            rhs = torch.cat([r1, torch.where(is_eq, r2, 0.0)], dim=-1)
+            s0 = lu(rhs)
+            s0 = s0 + lu(rhs - kmv(s0))     # one refinement round for f32
+            return s0[:, :n], s0[:, n:]
+        return solve
+
+    return make_solver
+
+
 def _ipm_core(data: QPData, iters: int, delta: float, rows: _Rows,
               do_polish: bool = True):
     """IPM on (scaled) data.  Returns (x, y) with y the OSQP-convention dual
@@ -247,9 +297,14 @@ def _ipm_core(data: QPData, iters: int, delta: float, rows: _Rows,
 
     finite_l = torch.isfinite(l)
     finite_u = torch.isfinite(u)
-    is_eq = torch.zeros(m, dtype=torch.bool, device=P.device)
-    is_eq[rows.eq_t] = True
-    is_eq = is_eq.expand(B, m)
+    if rows.eq is None:
+        # relative gap test: the bounds arrive Ruiz-scaled
+        is_eq = finite_l & finite_u & (
+            torch.abs(u - l) < 1e-9 * torch.clamp(torch.abs(u) + torch.abs(l), min=1.0))
+    else:
+        is_eq = torch.zeros(m, dtype=torch.bool, device=P.device)
+        is_eq[rows.eq_t] = True
+        is_eq = is_eq.expand(B, m)
     has_l = finite_l & ~is_eq
     has_u = finite_u & ~is_eq
     n_barrier = torch.clamp(has_l.sum(-1) + has_u.sum(-1), min=1).to(dtype)
@@ -261,7 +316,10 @@ def _ipm_core(data: QPData, iters: int, delta: float, rows: _Rows,
     Amv, ATmv = _struct_matvecs(A, rows, n, m)
     # Levenberg-style adaptive primal regularization floored at _REG_MIN: a
     # Cholesky breakdown escalates it so the next factorization goes through
-    make_solver = _condensed_solver_factory(P, A, rows, delta)
+    if rows.eq is None:
+        make_solver = _lu_solver_factory(P, A, is_eq, delta)
+    else:
+        make_solver = _condensed_solver_factory(P, A, rows, delta)
 
     # -- starting point --------------------------------------------------
     x = torch.zeros_like(q)
@@ -404,13 +462,15 @@ def _ipm_core(data: QPData, iters: int, delta: float, rows: _Rows,
     return _sel(pol_ok, x_pol, x), _sel(pol_ok, y_pol, y)
 
 
-def solve_qp_ip(data: QPData, eq_rows: np.ndarray, iters: int = 25,
+def solve_qp_ip(data: QPData, eq_rows: np.ndarray | None = None, iters: int = 25,
                 delta: float = 1e-7, struct=None, zoom_rounds: int = 1,
                 zoom_iters: int | None = None) -> QPSolution:
     """Ruiz-scale, run the IPM and the zoom ladder, unscale, report residuals.
 
     ``data`` is a batch of QPs (leading dimension B); ``eq_rows`` the static
-    index array of the equality rows (may be empty).
+    index array of the equality rows (may be empty; the row structure
+    ``struct`` is used only with it).  Without it each Newton system is a
+    pivoted LU of the full KKT (``_lu_solver_factory``).
     """
     # symmetrize (f32 Gram sums are only symmetric in exact arithmetic);
     # ridge AFTER equilibration, where the diagonal is O(1)
@@ -461,7 +521,8 @@ def solve_qp_ip(data: QPData, eq_rows: np.ndarray, iters: int = 25,
         return (a[0] < b[0]) | ((a[0] == b[0]) & (a[1] < b[1]))
 
     is_eq_z = torch.zeros(m, dtype=torch.bool, device=device)
-    is_eq_z[rows.eq_t] = True
+    if rows.eq is not None:
+        is_eq_z[rows.eq_t] = True
     fin_l, fin_u = torch.isfinite(l0), torch.isfinite(u0)
 
     def zoom_round(xs, ys, phi1, pieces, zoom, active):

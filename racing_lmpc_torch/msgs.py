@@ -1,9 +1,11 @@
 """In-process message types mirroring mpclab_msgs / lmpc_msgs.
 
-A copy of the dataclasses of ``racing_lmpc_tpu/msgs.py`` that the
+A copy of the dataclasses of ``racing_lmpc_tpu/msgs.py``: those the
 co-simulation exchanges (``VehicleStateMsg`` and its parts,
-``VehicleActuationMsg``, ``MPCTelemetry``, ``TrajectoryCommand``): field
-names follow the reference's .msg definitions
+``VehicleActuationMsg``, ``MPCTelemetry``, ``TrajectoryCommand``) and the
+rest of the reference's messages (``PredictionMsg``,
+``ControllerStatusMsg``, ``EncoderMsg``, ``TimingMsg``,
+``TrackLookaheadMsg``).  Field names follow the reference's .msg definitions
 (``src/common/mpclab_msgs/msg/*.msg``, ``src/common/lmpc_msgs``).
 """
 
@@ -116,6 +118,18 @@ class VehicleStateMsg:
 
 
 @dataclass
+class PredictionMsg:
+    """mpclab_msgs/PredictionMsg: full horizon arrays."""
+    t: float = 0.0
+    s: list = field(default_factory=list)
+    x_tran: list = field(default_factory=list)
+    e_psi: list = field(default_factory=list)
+    v_long: list = field(default_factory=list)
+    v_tran: list = field(default_factory=list)
+    psidot: list = field(default_factory=list)
+
+
+@dataclass
 class MPCTelemetry:
     """lmpc_msgs/MPCTelemetry (MPCTelemetry.msg:1-24)."""
     trajectory_index: int = 0
@@ -136,3 +150,40 @@ class TrajectoryCommand:
     trajectory_index: int = 0
     speed_limit: float = 0.0
     velocity_profile_scale: float = 1.0
+
+
+@dataclass
+class ControllerStatusMsg:
+    status: int = 0
+    message: str = ""
+
+
+@dataclass
+class EncoderMsg:
+    """Wheel encoder counts / velocity estimates (EncoderMsg.msg:1-8):
+    driveshaft + four wheels."""
+    t: float = 0.0
+    ds: float = 0.0
+    fl: float = 0.0
+    fr: float = 0.0
+    bl: float = 0.0
+    br: float = 0.0
+
+
+@dataclass
+class TimingMsg:
+    """Node-step timing data (TimingMsg.msg:1-6)."""
+    step_start_time: float = 0.0
+    step_execution_time: float = 0.0
+    source_time: float = 0.0
+    publish_time: float = 0.0
+
+
+@dataclass
+class TrackLookaheadMsg:
+    """Curvature lookahead along the track (TrackLookaheadMsg.msg:1-8)."""
+    t: float = 0.0
+    l: float = 0.0
+    dl: float = 0.0
+    n: float = 0.0
+    curvature: list = field(default_factory=list)

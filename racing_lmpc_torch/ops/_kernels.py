@@ -17,6 +17,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -25,6 +26,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 # non-positive pivot gives inf/NaN exactly as the plain versions do
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# a first launch may come from a thread of the native bus while another
+# thread builds: one build at a time
+_build_lock = threading.Lock()
 
 
 def names() -> list[str]:
@@ -52,6 +56,11 @@ def build(*kernels: str) -> dict[str, str]:
     library is missing or stale, one ``nvcc`` each, run side by side.
     Returns each built kernel's compiler output (the ``ptxas`` register and
     shared-memory report); raises with that output if an nvcc fails."""
+    with _build_lock:
+        return _build(kernels)
+
+
+def _build(kernels: tuple[str, ...]) -> dict[str, str]:
     jobs = {}
     for name in kernels or names():
         src, lib = _paths(name)

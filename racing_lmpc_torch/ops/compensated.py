@@ -1,8 +1,9 @@
 """Compensated (double-word) f32 arithmetic for the zoomed QP refinement.
 
 Port of ``racing_lmpc_tpu/ops/compensated.py``: the Veltkamp split, Dekker's
-``two_prod``, Knuth's ``two_sum`` and the pairwise ``sum_compensated`` tree
-(same odd-length zero padding), op for op and in the same order.
+``two_prod``, Knuth's ``two_sum``, the pairwise ``sum_compensated`` tree
+(same odd-length zero padding), the double-word products and ``add_dw``,
+op for op and in the same order.
 
 These are error-free transformations: their exactness depends on every
 product and sum being rounded separately.  Eager PyTorch runs each
@@ -78,3 +79,15 @@ def dot_compensated(a: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
     p, e = two_prod(a, b)
     hi, lo = sum_compensated(p, dim=-1)
     return hi, lo + torch.sum(e, dim=-1)
+
+
+def add_dw(hi: Tensor, lo: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
+    """(hi + lo) + b as a renormalized double-word pair."""
+    s, e = two_sum(hi, b)
+    return s, e + lo
+
+
+def matvec_acc_compensated(A: Tensor, x: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
+    """A @ x + b as a double-word (hi, lo) pair (b exact f32)."""
+    hi, lo = matvec_compensated(A, x)
+    return add_dw(hi, lo, b)

@@ -1,5 +1,5 @@
-"""Angle / abscissa wrapping and the lateral-side test (port of
-``racing_lmpc_tpu/ops/math.py:17-52``).
+"""Angle / abscissa wrapping, the lateral-side test and the small planar
+rotations (port of ``racing_lmpc_tpu/ops/math.py``).
 
 Elementwise and shape-polymorphic: every function broadcasts over leading
 batch dimensions, as the reference's does.
@@ -42,3 +42,38 @@ def lateral_sign(position: Tensor, pose: Tensor) -> Tensor:
     return torch.sign(
         torch.cos(yaw) * (position[..., 1] - pose[..., 1])
         - torch.sin(yaw) * (position[..., 0] - pose[..., 0]))
+
+
+def norm_2(v: Tensor) -> Tensor:
+    """2-norm over the trailing axis, broadcasting over leading batch dims
+    (``lmpc::utils::norm_2_function``, utils.cpp:45-50)."""
+    return torch.sqrt(torch.sum(torch.square(v), dim=-1))
+
+
+def global_to_frenet_rotation(p: Tensor, p0: Tensor, yaw: Tensor) -> Tensor:
+    """Rotate point(s) ``p`` into the frame of ``p0`` with heading ``yaw``:
+    ``R(-yaw) @ (p - p0)`` (``lmpc::utils::global_to_frenet``,
+    utils.hpp:45-60).  ``p``/``p0``: (..., 2)."""
+    c = torch.cos(yaw)
+    s = torch.sin(yaw)
+    d = p - p0
+    return torch.stack(
+        [c * d[..., 0] + s * d[..., 1], -s * d[..., 0] + c * d[..., 1]], dim=-1)
+
+
+def body_to_spatial_velocity(v_body: Tensor, yaw: Tensor) -> Tensor:
+    """Rotate a body-frame (vx, vy) velocity into the spatial/global frame."""
+    c = torch.cos(yaw)
+    s = torch.sin(yaw)
+    return torch.stack(
+        [c * v_body[..., 0] - s * v_body[..., 1],
+         s * v_body[..., 0] + c * v_body[..., 1]], dim=-1)
+
+
+def spatial_to_body_velocity(v_spatial: Tensor, yaw: Tensor) -> Tensor:
+    """Rotate a spatial-frame velocity into the body frame."""
+    c = torch.cos(yaw)
+    s = torch.sin(yaw)
+    return torch.stack(
+        [c * v_spatial[..., 0] + s * v_spatial[..., 1],
+         -s * v_spatial[..., 0] + c * v_spatial[..., 1]], dim=-1)

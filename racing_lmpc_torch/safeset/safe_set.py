@@ -1,10 +1,16 @@
 """Safe set for LMPC: stored laps, cost-to-go, k-nearest query and the
 local error-dynamics regression.
 
-Port of the numpy path of ``racing_lmpc_tpu/safeset/safe_set.py``
-(``SafeSetManager``, ``:75-298``, and ``SafeSetRecorder``, ``:301-369``).
-The reference's native C++ k-NN is not bound here; the query is the
-reference's numpy fallback.  ``query_regression`` runs its one-step
+Port of ``racing_lmpc_tpu/safeset/safe_set.py`` (``SafeSetManager``,
+``:75-298``, and ``SafeSetRecorder``, ``:301-369``).  As in the reference,
+the k-nearest query runs through the native C++ store
+(``racing_lmpc_torch.native.NativeSafeSet``, the threaded per-lap k-NN of
+the reference's TBB role) unless the caller passes ``use_native=False``;
+then it is the reference's numpy path.  The two break ties between
+equidistant points differently (the C++ store orders each lap's points by
+(squared distance, index)), so the native default is what gives the
+reference's answers.  The numpy arrays stay the source of truth for the
+regression and for the device upload.  ``query_regression`` runs its one-step
 prediction sweep over every stored point batched through the model's
 discrete dynamics on the port's device in f32 (as the reference does under
 ``jax.vmap``), and its Epanechnikov-weighted least squares in float64 numpy
@@ -62,9 +68,16 @@ class RegResult(NamedTuple):
 
 
 class SafeSetManager:
-    """Ring buffer of stored laps in fixed-size padded host arrays."""
+    """Ring buffer of stored laps in fixed-size padded host arrays; with
+    ``use_native`` (the default) the query runs through the native store,
+    and its build failing raises."""
 
-    def __init__(self, max_laps: int, nx: int = 6, nu: int = 2, pad_len: int = 2048):
+    def __init__(self, max_laps: int, nx: int = 6, nu: int = 2, pad_len: int = 2048,
+                 use_native: bool = True):
+        self._native = None
+        if use_native:
+            from racing_lmpc_torch import native
+            self._native = native.NativeSafeSet(max_laps, nx)
         self.max_laps = max_laps
         self.nx, self.nu = nx, nu
         self.pad = pad_len
@@ -130,6 +143,8 @@ class SafeSetManager:
         dt = np.diff(t)
         self.dt_raw[slot, :T] = np.concatenate([dt, dt[-1:]]) if dt.size else np.zeros(T)
         self.valid_raw[slot, :T] = True
+        if self._native is not None:
+            self._native.add_lap(x, total_length)
 
     # ------------------------------------------------------------------
     def query(self, query: SSQuery) -> SSResult:
@@ -141,6 +156,10 @@ class SafeSetManager:
         if self.num_laps == 0:
             return SSResult(np.zeros((0, self.nx), dtype=np.float32),
                             np.zeros((0,), dtype=np.float32))
+        if self._native is not None:
+            return SSResult(*self._native.query(
+                np.asarray(query.x[:2], dtype=np.float32),
+                int(query.max_num_total), int(query.max_num_per_lap)))
         p = np.asarray(query.x[:2], dtype=np.float32)
         xs, Js = [], []
         total = 0

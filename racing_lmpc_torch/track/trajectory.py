@@ -5,8 +5,15 @@ the centerline (x, y) and of (speed, left offset, right offset), fit on the
 host at load and evaluated on the track's device (CUDA unless the caller
 names one); yaw and curvature from the spline derivatives; global -> Frenet
 by a fixed-iteration guarded Newton projection on the arc length, seeded at
-the nearest waypoint (a brute-force argmin over the waypoint table, which
-picks the first of equidistant waypoints as the reference's argmin does).
+the nearest waypoint.  On the device the seed is a brute-force argmin over
+the waypoint table (the first of equidistant waypoints, as the reference's
+argmin).  On the host, as in the reference, it is the native runtime's f32
+KD-tree over the waypoints (``racing_lmpc_torch.native.KdTree2D``, the
+reference's CGAL role), and the table is read by the native loader; with
+``use_native=False`` the host seed is the f64 argmin and the table is read
+by ``np.loadtxt``.  The KD-tree compares in f32 and breaks ties by its
+traversal, so only the native default gives the reference's seeds on
+equidistant waypoints.
 
 Every device accessor broadcasts over leading batch dimensions.  The
 ``*_np`` evaluators are the same math on SciPy twins of the splines, for
@@ -55,8 +62,9 @@ class TrajectoryIndex(enum.IntEnum):
 class RacingTrajectory:
     """Device-resident track model with Frenet <-> global conversions."""
 
-    def __init__(self, table: np.ndarray, device=None):
-        """``table``: (M, 17) waypoint array (rows = waypoints)."""
+    def __init__(self, table: np.ndarray, device=None, use_native: bool = True):
+        """``table``: (M, 17) waypoint array (rows = waypoints); with
+        ``use_native`` the host seed is the native KD-tree's."""
         self.device = resolve_device(device)
         table = np.asarray(table, dtype=np.float64)
         if table.ndim != 2 or table.shape[1] < 13:
@@ -86,12 +94,21 @@ class RacingTrajectory:
         self.waypoints_s = torch.as_tensor(s, dtype=torch.float32, device=self.device)
         self._wp_xy_np = xy
         self._wp_s_np = s
+        self._kdtree = None
+        if use_native:
+            from racing_lmpc_torch import native
+            self._kdtree = native.KdTree2D(xy)
 
     @classmethod
-    def from_file(cls, file_name: str | Path, device=None) -> "RacingTrajectory":
+    def from_file(cls, file_name: str | Path, device=None,
+                  use_native: bool = True) -> "RacingTrajectory":
         """Load the whitespace 17-column format of the reference's track
-        files (rows = waypoints)."""
-        return cls(np.loadtxt(file_name), device=device)
+        files (rows = waypoints), with the native loader unless
+        ``use_native`` is False."""
+        if use_native:
+            from racing_lmpc_torch import native
+            return cls(native.load_table(file_name), device=device)
+        return cls(np.loadtxt(file_name), device=device, use_native=False)
 
     # ------------------------------------------------------------------
     # device accessors (one per reference interpolant)
@@ -148,10 +165,24 @@ class RacingTrajectory:
         return num / den
 
     def nearest_waypoint_abscissa_np(self, xy: np.ndarray) -> np.ndarray:
-        """Abscissa of the closest waypoint (brute-force argmin)."""
+        """Abscissa of the closest waypoint: the native KD-tree's nearest in
+        f32, or the brute-force f64 argmin without it."""
         xy = np.asarray(xy, dtype=np.float64)
+        if self._kdtree is not None:
+            idx, _ = self._kdtree.knn(xy.reshape(-1, 2).astype(np.float32), 1)
+            return self._wp_s_np[idx[:, 0]].reshape(np.shape(xy)[:-1])
         d2 = np.sum((self._wp_xy_np - xy[..., None, :]) ** 2, axis=-1)
         return self._wp_s_np[np.argmin(d2, axis=-1)]
+
+    def frenet_to_global_np(self, pose_frenet: np.ndarray) -> np.ndarray:
+        """Host twin of ``frenet_to_global``: (s, t, xi) -> (x, y, phi)."""
+        pf = np.asarray(pose_frenet, dtype=np.float64)
+        s, t, xi = pf[..., 0], pf[..., 1], pf[..., 2]
+        xy = self._xy_cs(s)
+        yaw0 = self.yaw_np(s)
+        phi = yaw0 + xi
+        return np.stack([xy[..., 0] - np.sin(yaw0) * t, xy[..., 1] + np.cos(yaw0) * t,
+                         np.arctan2(np.sin(phi), np.cos(phi))], axis=-1)
 
     def global_to_frenet_np(self, pose_global: np.ndarray,
                             s_prev: float | np.ndarray | None = None

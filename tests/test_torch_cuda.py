@@ -1,6 +1,7 @@
 """Port tests that need an NVIDIA GPU: the hand-written kernels against
-their plain versions, and the batched solve on the card against the same
-solve on the CPU.  They skip where ``torch.cuda.is_available()`` is false.  This file
+their plain versions, the batched solve on the card against the same
+solve on the CPU, a few cycles of the bus co-simulation, the world-size-1
+NCCL sharded solve and the IPM's LU branch on the card.  They skip where ``torch.cuda.is_available()`` is false.  This file
 imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -230,3 +231,69 @@ def test_regression_sweep_on_card_matches_host(cuda):
     for a, b in zip(card, host):
         assert np.abs(a - b).max() < 1e-4
     assert np.abs(card.A[:4]).max() == 0.0 and np.abs(card.A[4:]).sum() > 0.0
+
+
+def test_bus_cycles_on_card(cuda):
+    """3 cycles of the two-node co-simulation over the native bus, the
+    controller launching its kernels from the bus's dispatch thread."""
+    from racing_lmpc_torch.launch.runner import _SCENARIOS, BusCoSimulation
+    sim = BusCoSimulation(_SCENARIOS["barc_lmpc"], n_override=10,
+                          mpc_overrides={"num_ss_pts": 16}, device=cuda)
+    tl.chol_tri_inv.launches = 0
+    try:
+        summary = sim.run(3, timeout_s=300.0)
+    finally:
+        sim.close()
+    assert summary["steps"] == 3 and tl.chol_tri_inv.launches > 0
+    for t in sim.cs.telemetry:
+        assert np.isfinite(t.control).all() and np.isfinite(t.cost)
+
+
+def test_world_size_1_nccl_sharded_solve_matches_unsharded(cuda):
+    import torch.distributed as dist
+    from racing_lmpc_torch.benchmarks import build_barc_lmpc, make_scenario_batch
+    from racing_lmpc_torch.parallel import sharded_batch_solver, sharded_metrics
+    from racing_lmpc_torch.parallel.distributed import (
+        global_mesh, initialize, process_allgather, shard_batch_global)
+    from racing_lmpc_torch.parallel.spawn import free_port
+    _, track, _, mpc, manager = build_barc_lmpc(10, 16, device=cuda)
+    inp = make_scenario_batch(mpc, track, manager, 8, seed=3, device=cuda)
+    z = torch.zeros((8, mpc.layout.n))
+    valid = torch.zeros((8,), dtype=torch.bool)
+    want, _ = mpc.solve_batch(inp)
+    initialize(f"127.0.0.1:{free_port()}", 1, 0, cuda)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = global_mesh()
+        tl.chol_tri_inv.launches = 0
+        out, _ = sharded_batch_solver(mpc, mesh)(
+            *(shard_batch_global(x, mesh) for x in (inp, z, valid)))
+        assert tl.chol_tri_inv.launches > 0
+        frac, cmin = sharded_metrics(out.solved, out.obj, mesh)
+        U, solved = process_allgather((out.U_optm, out.solved))
+    finally:
+        dist.destroy_process_group()
+    assert np.array_equal(solved, np_of(want.solved))
+    assert rel_err(U, np_of(want.U_optm)) < 1e-5
+    assert float(frac) == float(want.solved.float().mean())
+    assert float(cmin) == float(want.obj[want.solved].min())
+
+
+def test_ipm_lu_branch_on_card_matches_cpu(cuda):
+    """``solve_qp_ip`` without ``eq_rows`` (the pivoted-LU KKT) on the card
+    and on the CPU: both converge, x within 5e-4 and the objective within
+    1e-5 (the CPU tests' bounds against the reference)."""
+    from racing_lmpc_torch.mpc.ipm import solve_qp_ip
+    from racing_lmpc_torch.mpc.qp import QPData
+    P, q, A, l, u = random_qps(np.random.default_rng(8), 6, 10, 14)
+    l[:, :3] = u[:, :3] = 0.0                       # three equality rows
+    l[:, 3:5] = -np.inf
+    sols = {}
+    for dev in ("cpu", cuda):
+        sols[str(dev)] = solve_qp_ip(QPData(*(torch.as_tensor(a, device=dev)
+                                              for a in (P, q, A, l, u))), iters=25)
+    cpu, gpu = sols["cpu"], sols[str(cuda)]
+    for s in (cpu, gpu):
+        assert (np_of(s.rp_rel) < 1e-3).all() and (np_of(s.rd_rel) < 1e-3).all()
+    assert rel_err(np_of(gpu.x), np_of(cpu.x)) < 5e-4
+    assert rel_err(np_of(gpu.obj), np_of(cpu.obj)) < 1e-5

@@ -28,7 +28,8 @@ runs of ``ContinuousCoSimulation`` with an EKF filtering noisy
 observations between plant and controller and an actuation outage (see
 ``reference_continuous_run``); ``stack`` holds the LQR and the legacy
 controller on the inputs ``chip_smoke.stack_problem`` makes (see
-``compute_stack``).
+``compute_stack``); ``BUS_CASES`` holds runs of ``BusCoSimulation``, the
+two nodes over the native bus (see ``reference_bus_run``).
 
 Run from the repository root:
 
@@ -90,6 +91,9 @@ EKF_NOISE_STD = (0.01, 0.01, 0.01, 0.03, 0.01, 0.05)
 EKF_SEED = 11
 # moved copies of the legacy controller's solves (compute_stack)
 LEGACY_MOVED = 4
+# bus co-simulation case -> (launch scenario, cycles, moved re-runs,
+# BusCoSimulation arguments): tests/test_native.py's smoke run
+BUS_CASES = {"bus_barc_tracking_mpc_n10": ("barc_tracking_mpc", 5, 4, {"n_override": 10})}
 
 
 def fixture_path(case: str) -> Path:
@@ -186,6 +190,71 @@ def reference_ctrl_run(scenario: str, steps: int, move_seed: int | None = None,
             "s": s, "x_tran": x_tran, "lap": lap,
             "total_length": np.float64(cs.track.total_length),
             "scale_u": np.asarray(cs.controller.mpc.scale_u)}
+
+
+def reference_bus_run(scenario: str, steps: int, move_seed: int | None = None,
+                      **bus_kw) -> dict:
+    """``steps`` cycles of the reference's ``BusCoSimulation`` of a launch
+    scenario, the states moved as ``reference_ctrl_run`` moves them when
+    ``move_seed`` is given.  Returns what ``reference_ctrl_run`` does, the
+    actuation each cycle published (``u_a``, ``u_steer``) and the run's
+    summary counts."""
+    _jax_on_cpu()
+    from racing_lmpc_tpu.launch.runner import _SCENARIOS, BusCoSimulation
+
+    bus = BusCoSimulation(_SCENARIOS[scenario], **bus_kw)
+    cs = bus.cs
+    seen, acts, plant = [], [], []
+    step, ctrl_cycle, plant_cycle = (cs.controller.step, cs.controller_cycle,
+                                     cs.plant_cycle)
+
+    def recording_step(x_ic, u_ic=None):
+        seen.append((np.asarray(x_ic, np.float32), np.asarray(u_ic, np.float32)))
+        return step(x_ic, u_ic)
+
+    def recording_cycle(msg):
+        act = ctrl_cycle(msg)
+        acts.append((act.u_a, act.u_steer))
+        return act
+
+    def recording_plant(act):
+        msg = plant_cycle(act)
+        plant.append((msg.p.s, msg.p.x_tran, cs.lap_num))
+        return msg
+
+    cs.controller.step = recording_step
+    cs.controller_cycle = recording_cycle
+    cs.plant_cycle = recording_plant
+    if move_seed is not None:
+        cs.state_filter = _mover(move_seed)
+    try:
+        summary = bus.run(steps, timeout_s=3600.0)
+    finally:
+        bus.close()
+    tel = cs.telemetry
+    s, x_tran, lap = (np.asarray(v) for v in zip(*plant))
+    u_a, u_steer = (np.asarray(v) for v in zip(*acts))
+    return {"x_ctrl": np.stack([x for x, _ in seen]),
+            "u_ic": np.stack([u for _, u in seen]),
+            "u_apply": np.asarray([t.control for t in tel], np.float32),
+            "obj": np.asarray([t.cost for t in tel], np.float32),
+            "used_fallback": np.asarray([not t.solved for t in tel]),
+            "s": s, "x_tran": x_tran, "lap": lap, "u_a": u_a, "u_steer": u_steer,
+            "bus_messages": np.int64(summary["bus_messages"]),
+            "total_length": np.float64(cs.track.total_length),
+            "scale_u": np.asarray(cs.controller.mpc.scale_u)}
+
+
+def compute_bus(case: str) -> dict:
+    """A bus co-simulation fixture: the reference run and its moved re-runs
+    stacked on a leading run axis."""
+    scenario, steps, moved, kw = BUS_CASES[case]
+    runs = [reference_bus_run(scenario, steps, move_seed=s or None, **kw)
+            for s in range(moved + 1)]
+    single = ("total_length", "scale_u")
+    out = {k: np.stack([r[k] for r in runs]) for k in runs[0] if k not in single}
+    out.update({k: runs[0][k] for k in single})
+    return out
 
 
 def compute_ctrl(case: str) -> dict:
@@ -749,9 +818,11 @@ def compute(case: str) -> dict:
 def main() -> None:
     FIXTURE_DIR.mkdir(parents=True, exist_ok=True)
     for case in sys.argv[1:] or [*CASES, *CTRL_CASES, *ADMM_CASES, *CONT_CASES, "stack",
-                                 *NL_CASES, *MODEL_CTRL_FIXTURES]:
+                                 *NL_CASES, *MODEL_CTRL_FIXTURES, *BUS_CASES]:
         path = fixture_path(case)
-        if case == "nl_qp_n10":
+        if case in BUS_CASES:
+            arrays = compute_bus(case)
+        elif case == "nl_qp_n10":
             arrays = compute_nl_qp()
         elif case in NL_CASES:
             arrays = compute_nl(case)
