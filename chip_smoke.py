@@ -62,9 +62,24 @@
    tests/test_closed_loop.py within the test's gates, each with 5
    teacher-forced replays held to the reference's spread.
 
-The teacher-forced replays of every controller path run after all the
-timed phases, side by side in processes of their own on the same card
-(``settle_replays``), and are held to the reference then.
+7. The entry point: ``racing_lmpc_torch.entry.entry()`` (the twin of
+   ``__graft_entry__.entry``), its ``fn`` on its example arguments: finite
+   controls, equal to the port's own ``solve_batch`` lane to the bit, held
+   with the flagship gates to the reference's runs of the same solve
+   (``tests/data/torch_port/entry_barc_n20_k48.npz``).
+8. Accuracy: the 11 pinned instances (``tests/data/acc_instances``), each
+   solved on the card as 9 copies (the instance and 8 moved by one f32
+   rounding), held to every gate of
+   tests/test_reference_match.py::test_engine_matches_certified with the
+   per-instance limits of ``ACCURACY.json``, in the reference QP that the
+   port's own f64 oracle (``mpc/reference_qp.py``) builds on the card; that
+   build within 1e-9 of the exported QP; the oracle's dense f64 solve
+   certified on the card on every instance; the port's f64 OSQP
+   (``mpc/osqp_ref.py``) reproducing the reference-class wander.
+
+The teacher-forced replays of every controller path and the accuracy phase
+run after all the timed phases, side by side in processes of their own on
+the same card (``settle_replays``), and are held to their gates then.
 
 Every path is driven with every launch counter set to 0 just before and
 read just after.  Prints one ``{"kernels": [...]}`` line, and as its last
@@ -121,6 +136,15 @@ EKF_X_TOL, EKF_P_TOL = 1e-5, 1e-4
 # the control-stack case: the LQR at this batch, and the legacy controller
 STACK_BATCH = 256
 LQR_TOL = 1e-4           # relative to max(1, |reference|)
+
+# the twin of __graft_entry__.entry(): its stored reference runs, as
+# tests/torch_port_fixture.py wrote them (compute_entry)
+ENTRY_CASE = "entry_barc_n20_k48"
+# the pinned accuracy instances (tests/data/acc_instances) with their gates
+# (ACCURACY.json), each solved as this many copies: the instance and copies
+# moved by one f32 rounding (tests/_torch_twin.py::replay_instance)
+ACC_DIR = ROOT / "tests" / "data" / "acc_instances"
+ACC_REPLICAS = 9
 
 # H100 SXM published peaks (NVIDIA data sheet) for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
@@ -243,6 +267,10 @@ def kernel_phase(device) -> dict:
     # nonlinear-row paths
     for n in sorted({31, 32, 33, 64, 96, 97, 225, 240, *sizes.values()}):
         cases.append((f"panel edge n={n}", spd_batch(rng, 4, n), False))
+    # the entry point's solve, and the accuracy phase's batches of copies
+    cases.append(("H, entry() N=20 K=48", spd_batch(rng, 1, 87), True))
+    for scenario, n in acc_qp_sizes().items():
+        cases.append((f"H, accuracy {scenario}", spd_batch(rng, ACC_REPLICAS, n), True))
     main = None
     for name, Hn, timed in cases:
         H = torch.as_tensor(Hn, device=device)
@@ -311,6 +339,12 @@ def kernel_phase(device) -> dict:
     else:
         raise AssertionError(f"chol_tri_inv took n={big}")
     return main
+
+
+def acc_qp_sizes() -> dict:
+    """The condensed QP size n of each pinned instance's scenario (the
+    length of its stored warm start ``zw``)."""
+    return {rec["scenario"]: len(d["zw"]) for rec, d, _ in acc_instances()}
 
 
 def hadamard_tie_batch(rng) -> np.ndarray:
@@ -799,10 +833,13 @@ def ctrl_fixture(case: str) -> dict:
 
 def replay_job(case: str, r: int) -> dict:
     """Teacher-forced replay ``r`` of controller fixture ``case`` on the card,
-    in a process of its own (``replays``)."""
+    in a process of its own (``settle_replays``); or, for ``case``
+    "accuracy", the accuracy phase."""
     import torch
     import racing_lmpc_torch  # noqa: F401  (sets the numerics policy)
     device = torch.device("cuda", 0)
+    if case == "accuracy":
+        return accuracy_phase(device)
     fx = ctrl_fixture(case)
     if case in MODEL_CTRL_CASES:
         return replay(model_controller(case, device, n=int(fx["n"]))[0], fx, r)
@@ -811,13 +848,14 @@ def replay_job(case: str, r: int) -> dict:
 
 
 def settle_replays(pending: list[tuple]) -> None:
-    """Every controller path's teacher-forced replays, after the timed
-    phases: ``pending`` holds (case, replays, check) per path.  The replays
-    run side by side in ``REPLAY_WORKERS`` processes of their own on the
-    same card (a batch-1 cycle leaves the card idle ~90% of the time, so
-    they overlap on the host; their launches are not counted), the longest
-    paths first; then each path's ``check`` holds its runs to the
-    reference.  Every process has ended when this returns."""
+    """Every controller path's teacher-forced replays, and the accuracy
+    phase, after the timed phases: ``pending`` holds (case, jobs, check) per
+    path.  The jobs run side by side in ``REPLAY_WORKERS`` processes of
+    their own on the same card (a batch-1 cycle leaves the card idle ~90%
+    of the time, so they overlap on the host; the replays' launches are not
+    counted, the accuracy phase counts its own), the longest paths first;
+    then each path's ``check`` holds its results to the reference.  Every
+    process has ended when this returns."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     jobs = [(case, r) for case, count, _ in pending for r in range(count)]
@@ -825,10 +863,272 @@ def settle_replays(pending: list[tuple]) -> None:
     with ProcessPoolExecutor(REPLAY_WORKERS,
                              mp_context=multiprocessing.get_context("spawn")) as pool:
         done = dict(zip(jobs, pool.map(replay_job, *zip(*jobs))))
-    print(f"replays: {len(jobs)} teacher-forced runs in {REPLAY_WORKERS} processes, "
+    print(f"replays: {len(jobs)} jobs in {REPLAY_WORKERS} processes, "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     for case, count, check_runs in pending:
         check_runs([done[(case, r)] for r in range(count)])
+
+
+def drive_entry(device) -> dict:
+    """``racing_lmpc_torch.entry.entry()``: its ``fn`` on its example
+    arguments with every launch count set to 0 just before and read just
+    after; finite controls of shape (N-1, nu), equal to the port's own
+    ``solve_batch`` lane on the same input to the bit (the same code on the
+    same device), and that solve with its runs on the moved inputs held
+    with the flagship batch's gates to the reference's runs of
+    ``__graft_entry__.entry()`` (``ENTRY_CASE``).  Returns the launch counts."""
+    import torch
+    from racing_lmpc_torch.benchmarks import build_barc_lmpc, make_scenario_batch
+    from racing_lmpc_torch.entry import entry
+    from racing_lmpc_torch.mpc.racing_mpc import REQUIRED_FIELDS
+
+    fn, args = entry()
+    zero_launches()
+    U = fn(*args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"path entry: launches {launches}", flush=True)
+    check(0 < launches["chol_tri_inv"] <= 150,
+          f"entry: chol_tri_inv launches {launches['chol_tri_inv']} not in (0, 150]")
+    check(launches["gj_inverse"] == 0, "entry: gj_inverse launched on the path")
+    check(U.device.type == "cuda" and bool(torch.isfinite(U).all()), "entry: U not finite")
+
+    fx = load_batch_fixture(ENTRY_CASE)
+    check(tuple(U.shape) == fx["U_optm"].shape[1:], f"entry: U shape {tuple(U.shape)}")
+    _, track, _, mpc, manager = build_barc_lmpc(n_horizon=20, num_ss=48, device=device)
+    inp = make_scenario_batch(mpc, track, manager, batch=1, device=device)
+    for name in REQUIRED_FIELDS:
+        got, want = getattr(inp, name).cpu().numpy(), fx[f"inp_{name}"]
+        check(got.shape == want.shape and np.allclose(got, want, rtol=1e-6, atol=1e-6),
+              f"entry: scenario input {name} differs from the fixture")
+        check(torch.equal(getattr(args[0], name), getattr(inp, name)[0]),
+              f"entry: example argument {name} is not the scenario's")
+    first, _ = mpc.solve_batch(inp)
+    check(torch.equal(U, first.U_optm[0]),
+          f"entry: fn differs from the solve_batch lane by "
+          f"{float((U - first.U_optm[0]).abs().max()):.3e}")
+    print("entry: fn(*example_args) equals the solve_batch lane to the bit", flush=True)
+    failed = held_to_reference(runs_like_reference(mpc, inp, fx, first=first), fx,
+                               gate_limits(fx), "entry vs reference")
+    check(not failed, f"entry: outside the reference's own spread on {failed}")
+    ms = cuda_time_ms(lambda: fn(*args), reps=5, warmup=1)
+    print(f"path entry: {ms:.1f} ms a solve", flush=True)
+    return launches
+
+
+def acc_instances() -> list[tuple[dict, dict, dict]]:
+    """(manifest record, arrays, ACCURACY.json gates) of every pinned
+    instance."""
+    man = json.loads((ACC_DIR / "manifest.json").read_text())
+    gates = json.loads((ROOT / "ACCURACY.json").read_text())["per_instance"]
+    out = []
+    for rec in man["instances"]:
+        with np.load(ACC_DIR / rec["file"], allow_pickle=False) as z:
+            out.append((rec, {k: z[k] for k in z.files}, gates[rec["tag"]]))
+    return out
+
+
+def acc_fields(d) -> dict:
+    return {k[4:]: v for k, v in d.items() if k.startswith("inp_")}
+
+
+def acc_copies(d, replicas: int = ACC_REPLICAS) -> dict:
+    """The instance's inputs as a batch of ``replicas`` copies: the first
+    exact, the others with x_ic and X_ref scaled by 1 + 2e-7 N(0, 1) from
+    numpy seed 0 (tests/_torch_twin.py::replay_instance)."""
+    rng = np.random.default_rng(0)
+    batch = {k: np.repeat(np.asarray(v)[None], replicas, 0) for k, v in acc_fields(d).items()}
+    for k in ("x_ic", "X_ref"):
+        noise = 1 + 2e-7 * rng.standard_normal(batch[k].shape)
+        noise[0] = 1.0
+        batch[k] = (batch[k] * noise).astype(np.float32)
+    return batch
+
+
+def acc_primal(qp, out, ss_x):
+    """Each copy's full primal packed into the reference QP's scaled
+    variables (tests/test_reference_match.py::_sparse_vector): (copies, n)
+    float64 on the QP's device."""
+    import torch
+    L = qp.layout
+    f64 = lambda t: t.to(qp.P.device, torch.float64)  # noqa: E731
+    X = f64(out.X_optm)
+    R = X.shape[0]
+    Z = torch.zeros((R, L.n), dtype=torch.float64, device=qp.P.device)
+    Z[:, :L.u_off] = (X / qp.scale_x).reshape(R, -1)
+    Z[:, L.u_off:L.du_off] = (f64(out.U_optm) / qp.scale_u).reshape(R, -1)
+    Z[:, L.du_off:L.du_off + (L.N - 1) * L.nu] = (f64(out.dU_optm) / qp.scale_u).reshape(R, -1)
+    if L.has_bslack:
+        Z[:, L.sb_off] = f64(out.boundary_slack).clamp(min=0.0)
+    if L.learning:
+        lam = f64(out.convex_combi)
+        Z[:, L.lam_off:L.lam_off + L.K] = lam
+        if L.has_hull_slack:
+            Z[:, L.hs_off:L.hs_off + L.nx] = X[:, -1] - lam @ f64(ss_x)
+    return Z
+
+
+def acc_reading(mpc, rec, d, device) -> tuple[dict, object]:
+    """One pinned instance solved by the port as ``ACC_REPLICAS`` copies on
+    ``device``, read as tests/test_reference_match.py::
+    test_engine_matches_certified reads the engine, in the reference QP that
+    the port's oracle builds at f64 on ``device``: the largest longitudinal
+    error, the median over the copies of the applied (stages 0-1) and tail
+    steering errors and of the objective gap, the largest infeasibility,
+    the exact instance's gap (the copy the test reads), the smallest gap,
+    the most any copy lies below the optimum beyond what its infeasibility
+    allows (the dual bound sum_i |y*_i| v_i at the stored certified duals),
+    and the build's drift from the exported QP.  Returns the reading and the
+    QP."""
+    import torch
+    from racing_lmpc_torch.carry import mpc_input_from_arrays
+    from racing_lmpc_torch.mpc.reference_qp import build_reference_qp
+
+    out, _ = mpc.solve_batch(mpc_input_from_arrays(acc_copies(d), device=device))
+    su = d["scale_u"]
+    N, nx, nu = d["inp_X_ref"].shape[0], 6, len(su)
+    U_star = d["z_star"][N * nx:N * nx + (N - 1) * nu].reshape(N - 1, nu) * su
+    rel = np.abs(out.U_optm.double().cpu().numpy() - U_star) / su
+
+    fields = acc_fields(d)
+    inp = mpc_input_from_arrays(fields, device=device)
+    qp = build_reference_qp(mpc.model, mpc.config, inp, device=device)
+    drift, same_inf = 0.0, True
+    for name in ("P", "q", "A", "l", "u"):
+        got, want = getattr(qp, name).cpu().numpy(), d[name]
+        fin = np.isfinite(want)
+        same_inf &= bool(np.array_equal(np.isfinite(got), fin))
+        if np.array_equal(np.isfinite(got), fin):
+            scale = max(1.0, float(np.abs(want[fin]).max()))
+            drift = max(drift, float(np.abs(got[fin] - want[fin]).max()) / scale)
+    Z = acc_primal(qp, out, inp.ss_x)
+    AZ = Z @ qp.A.T
+    rows = torch.maximum((AZ - qp.u).clamp(min=0.0), (qp.l - AZ).clamp(min=0.0))
+    z_star = torch.as_tensor(d["z_star"], device=device)
+    obj = 0.5 * (Z * (Z @ qp.P.T)).sum(1) + Z @ qp.q
+    obj_star = qp.objective(z_star)
+    norm = max(abs(obj_star), 1.0)
+    gaps = ((obj - obj_star) / norm).cpu().numpy()
+    # a point infeasible by v_i on row i can lie below the optimum by at
+    # most sum_i |y*_i| v_i (Lagrangian duality at the certified (z*, y*))
+    bound = (rows * torch.as_tensor(np.abs(d["y_star"]), device=device)).sum(1) / norm
+    reading = {"solved": int(out.solved.sum()), "lon max": float(rel[..., 0].max()),
+               "applied steer": float(np.median(rel[:, :2, 1].max(-1))),
+               "steer tail": float(np.median(rel[..., 1].max(-1))),
+               "infeasibility max": float(rows.amax(1).max()), "gap exact": float(gaps[0]),
+               "gap min": float(gaps.min()),
+               "unexplained beat": float((-torch.as_tensor(gaps, device=device) - bound).max()),
+               "objective gap": float(np.median(gaps)), "drift": drift, "same inf": same_inf}
+    return reading, qp
+
+
+def acc_limits(rec, gates: dict) -> dict:
+    """Each reading's limit: ACCURACY.json's per-instance applied-steer and
+    objective-gap gates, and tests/test_reference_match.py's fixed ones."""
+    return {"lon max": 1e-3, "applied steer": gates["applied_steer_gate"],
+            "steer tail": 2e-2 if rec["learning"] else 1e-2,
+            "infeasibility max": 5e-4, "objective gap": gates["obj_gap_gate"],
+            "drift": 1e-9}
+
+
+def accuracy_phase(device, tags=None) -> dict:
+    """The pinned instances (those of ``tags``, or all) through the port on
+    ``device`` at their gates (``acc_reading``, ``acc_limits``; every copy
+    converged, the exact instance not beating the certified optimum by more
+    than 1e-6, no copy beating it by more than 1e-6 beyond what its
+    infeasibility allows, the build's inf pattern the export's), with every
+    launch count set to 0
+    just before the solves and read just after; then the oracle's dense f64
+    solve on each instance, certified with the thresholds of
+    tests/test_reference_match.py::test_oracle_self_certifies and within
+    1e-6 of the stored optimum's controls; then the port's f64 OSQP on the
+    first deviated instance from the two warm starts of
+    test_reference_class_wander: accepted both times, its tail steering
+    scattering by more than 1e-2.  Returns the lines to print, the failed
+    checks, the launch counts and the timings."""
+    import torch
+    from racing_lmpc_torch.launch.runner import _SCENARIOS, CoSimulation
+    from racing_lmpc_torch.mpc import osqp_ref
+    from racing_lmpc_torch.mpc.reference_qp import kkt_residuals, solve_dense_qp_f64
+
+    insts = [i for i in acc_instances() if tags is None or i[0]["tag"] in tags]
+    mpcs = {}
+    for rec, _, _ in insts:
+        key = (rec["scenario"], rec["n_override"])
+        if key not in mpcs:
+            mpcs[key] = CoSimulation(_SCENARIOS[key[0]], n_override=key[1],
+                                     device=device).controller.mpc
+    lines, failed, qps = [], [], {}
+    t = time.perf_counter()
+    zero_launches()
+    for rec, d, gates in insts:
+        tag = rec["tag"]
+        reading, qps[tag] = acc_reading(mpcs[(rec["scenario"], rec["n_override"])], rec, d,
+                                        device)
+        limits = acc_limits(rec, gates)
+        bad = [k for k, v in limits.items() if not reading[k] < v]
+        bad += [] if reading["solved"] == ACC_REPLICAS else ["solved"]
+        bad += [] if reading["gap exact"] > -1e-6 else ["gap exact"]
+        bad += [] if reading["unexplained beat"] < 1e-6 else ["unexplained beat"]
+        bad += [] if reading["same inf"] else ["inf pattern"]
+        failed += [f"{tag}: {k}" for k in bad]
+        lines.append(f"accuracy {tag}: {reading['solved']}/{ACC_REPLICAS} solved; "
+                     + "; ".join(f"{k} {reading[k]:.3e} (gate {v:.3e})" for k, v in limits.items())
+                     + f"; gap of the instance {reading['gap exact']:.3e} (> -1e-6); gap min "
+                     f"{reading['gap min']:.3e}, below the optimum beyond the infeasibility's "
+                     f"dual bound {reading['unexplained beat']:.3e} (< 1e-6)"
+                     + f" {'ok' if not bad else 'FAILS ' + ', '.join(bad)}")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = read_launches()
+    solve_s = time.perf_counter() - t
+    oracle_ms = {}
+    for rec, d, _ in insts:
+        tag, qp = rec["tag"], qps[rec["tag"]]
+        t = time.perf_counter()
+        try:
+            z, y = solve_dense_qp_f64(qp)
+        except RuntimeError as e:
+            failed.append(f"{tag}: oracle {e}")
+            continue
+        rp, rd, rc = kkt_residuals(qp, z, y)
+        oracle_ms[tag] = (time.perf_counter() - t) * 1e3
+        rd_rel = rd / max(1.0, float(qp.q.abs().max()))
+        dev = float(((qp.controls(z) - qp.controls(torch.as_tensor(d["z_star"], device=z.device)))
+                     / qp.scale_u).abs().max())
+        ok = rp < 1e-9 and rc < 1e-6 and rd_rel < 1e-9 and dev < 1e-6
+        failed += [] if ok else [f"{tag}: oracle residuals or landing"]
+        lines.append(f"oracle {tag} (n={qp.layout.n}, m={len(qp.l)}): {oracle_ms[tag]:.1f} ms; "
+                     f"rp {rp:.2e} (< 1e-9), rd/|q| {rd_rel:.2e} (< 1e-9), rc {rc:.2e} "
+                     f"(< 1e-6); controls {dev:.2e} from the stored optimum (< 1e-6) "
+                     f"{'ok' if ok else 'FAILS'}")
+    osqp = {}
+    dev_insts = [(rec, d) for rec, d, _ in insts if "_dev" in rec["tag"]]
+    if dev_insts:
+        rec, d = dev_insts[0]
+        su = d["scale_u"]
+        N, nx, nu = d["inp_X_ref"].shape[0], 6, len(su)
+        rng = np.random.default_rng(0)
+        data = [torch.as_tensor(d[k], device=device) for k in "PqAlu"]
+        sols = []
+        for x0 in (np.zeros_like(d["z_star"]),
+                   d["z_star"] + 0.1 * rng.standard_normal(len(d["z_star"]))):
+            t = time.perf_counter()
+            res = osqp_ref.solve(*data, x0=torch.as_tensor(x0, device=device))
+            ms = (time.perf_counter() - t) * 1e3
+            osqp.setdefault("iters", []).append(res.iters)
+            osqp.setdefault("ms", []).append(ms)
+            lines.append(f"osqp {rec['tag']}: {res.status} after {res.iters} iterations, "
+                         f"polished {res.polished}, {ms:.1f} ms")
+            failed += [] if res.status == "solved" else [f"{rec['tag']}: osqp {res.status}"]
+            sols.append(res.x[N * nx:N * nx + (N - 1) * nu].reshape(N - 1, nu).cpu().numpy() * su)
+        scatter = float((np.abs(sols[0] - sols[1]) / su)[:, 1].max())
+        osqp["scatter"] = scatter
+        lines.append(f"osqp {rec['tag']}: reference-class tail-steering wander {scatter:.3e} "
+                     f"(> 1e-2) {'ok' if scatter > 1e-2 else 'FAILS'}")
+        failed += [] if scatter > 1e-2 else ["osqp wander"]
+    return {"lines": lines, "failed": failed, "launches": launches, "solve_s": solve_s,
+            "oracle_ms": oracle_ms, "osqp": osqp}
 
 
 REG_KEYS = ("dA", "dB", "dC")
@@ -1998,6 +2298,7 @@ def main() -> int:
     per_path["barc_n20_k48_b256"], mpc, inp, fx, limits = drive_path(
         device, "barc_n20_k48_b256", profiled=True)
     lower_precision_control(mpc, inp, fx, limits)
+    per_path["entry"] = drive_entry(device)
     per_path["barc_n40_k96_b128"] = drive_path(device, "barc_n40_k96_b128")[0]
     # each controller path's replays, the longest first (settle_replays)
     pending = []
@@ -2031,6 +2332,18 @@ def main() -> int:
     per_path["sharded_barc_n20_k48_b256"] = drive_scaleout(device)
     drive_lu(device)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def settle_accuracy(results: list[dict]) -> None:
+        res = results[0]
+        for line in res["lines"]:
+            print(line, flush=True)
+        print(f"accuracy: {len(res['oracle_ms'])} instances, the port's solves in "
+              f"{res['solve_s']:.1f} s, launches {res['launches']}", flush=True)
+        per_path["accuracy"] = res["launches"]
+        check(not res["failed"], f"accuracy: {res['failed']}")
+        check(res["launches"]["chol_tri_inv"] > 0 and res["launches"]["gj_inverse"] == 0,
+              f"accuracy: launches {res['launches']}")
+    pending.insert(0, ("accuracy", 1, settle_accuracy))
     settle_replays(pending)
     print(f"replays done in {time.perf_counter() - t0:.1f} s", flush=True)
 

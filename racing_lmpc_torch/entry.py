@@ -1,6 +1,9 @@
-"""Entry points of the port: the multi-device dry run.
+"""Entry points of the port: one flagship solve and the multi-device dry run.
 
-``dryrun_multichip`` is the twin of ``__graft_entry__.dryrun_multichip``
+``entry`` is the twin of ``__graft_entry__.entry``
+(``__graft_entry__.py:8-22``): one LMPC solve of the flagship problem
+(BARC, N=20, K=48) through ``RacingMPC._solve_impl``.  ``dryrun_multichip``
+is the twin of ``__graft_entry__.dryrun_multichip``
 (``__graft_entry__.py:25-105``).  The reference shards over n devices of
 one program; here n processes form a ``torch.distributed`` group (NCCL with
 one GPU each, or gloo when ``device="cpu"``), each rank solving its shard.
@@ -10,6 +13,32 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def entry(device=None):
+    """(fn, example_args): one flagship LMPC solve (BARC, N=20, K=48) on
+    ``device`` (CUDA unless the caller names another).  ``fn(inp, z,
+    valid)`` takes one unbatched scenario, its warm-start vector (n,) and
+    its validity flag, and returns the solved controls ``U_optm`` (N-1, nu);
+    the example arguments are the first scenario of
+    ``make_scenario_batch(..., batch=1)``, a zero warm start and True."""
+    from racing_lmpc_torch import resolve_device
+    from racing_lmpc_torch.benchmarks import build_barc_lmpc, make_scenario_batch
+    from racing_lmpc_torch.mpc.racing_mpc import map_input
+
+    device = resolve_device(device)
+    _, track, _, mpc, manager = build_barc_lmpc(n_horizon=20, num_ss=48, device=device)
+    inp = make_scenario_batch(mpc, track, manager, batch=1, device=device)
+    single = map_input(lambda a: a[0], inp)
+    z = torch.zeros((mpc.layout.n,), dtype=torch.float32, device=device)
+    valid = torch.ones((), dtype=torch.bool, device=device)
+
+    def fn(inp, z, valid):
+        # _solve_impl takes a batch: this scenario is a batch of one
+        out, _ = mpc._solve_impl(map_input(lambda a: a[None], inp), z[None], valid[None])
+        return out.U_optm[0]
+
+    return fn, (single, z, valid)
 
 
 def dryrun_multichip(n_devices: int, device=None) -> None:

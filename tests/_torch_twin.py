@@ -145,6 +145,18 @@ def acc_instances(scenario: str):
     return out
 
 
+@functools.cache
+def scenario_mpcs(scenario: str, n: int):
+    """(JAX, port) MPC of a launch scenario at horizon ``n``, each built
+    through its package's ``CoSimulation`` of ``_SCENARIOS[scenario]`` at the
+    shipped defaults, as tests/test_reference_match.py:87-100 builds the
+    engine of a pinned instance."""
+    from racing_lmpc_tpu.launch.runner import _SCENARIOS as JS, CoSimulation as JC
+    from racing_lmpc_torch.launch.runner import _SCENARIOS as TS, CoSimulation as TC
+    return (JC(JS[scenario], n_override=n).controller.mpc,
+            TC(TS[scenario], n_override=n, device="cpu").controller.mpc)
+
+
 def replay_instance(rec, d, replicas: int, gates: dict):
     """Replay one pinned instance through the port on the CPU and hold it to
     its ACCURACY.json gates, in the way tests/test_reference_match.py:179-221
@@ -155,37 +167,22 @@ def replay_instance(rec, d, replicas: int, gates: dict):
     rounding moves the JAX package's own applied-steer error on barc_lmpc[6]
     between 3e-5 and 2e-2 (measured).  So the instance is solved as a batch
     of ``replicas`` copies, the first exact and the rest with x_ic and X_ref
-    perturbed by ~2e-7 relative; every copy must converge, meet the
-    longitudinal and feasibility gates, and the MEDIAN over the copies must
-    meet the steering and objective-gap gates.
+    perturbed by ~2e-7 relative (``chip_smoke.acc_copies``); every copy must
+    converge, meet the longitudinal and feasibility gates, and the MEDIAN
+    over the copies must meet the steering and objective-gap gates.  The vehicle and the config
+    are the instance's scenario's (``scenario_mpcs``); the reference QP is
+    the JAX package's build.
     """
-    import racing_lmpc_tpu.config as jc
-    from racing_lmpc_tpu.models import SingleTrackPlanarModel as JModel
+    import chip_smoke
     from racing_lmpc_tpu.mpc.racing_mpc import MPCInput as JInput
     from racing_lmpc_tpu.mpc.reference_qp import build_reference_qp
-    from racing_lmpc_torch import config as tc
     from racing_lmpc_torch.carry import mpc_input_from_arrays
-    from racing_lmpc_torch.models import SingleTrackPlanarModel
-    from racing_lmpc_torch.mpc.racing_mpc import RacingMPC
 
-    # the port's own reader builds the port's problem
-    p = tc.load_ros_params(tc.PARAM_DIR / "barc_base.param.yaml",
-                           tc.PARAM_DIR / "barc_single_track.param.yaml")
-    model = SingleTrackPlanarModel(tc.vehicle_config_from_params(p),
-                                   tc.single_track_config_from_params(p))
-    cfg = tc.mpc_config_from_params(
-        tc.load_ros_params(tc.PARAM_DIR / f"{rec['scenario']}.param.yaml"),
-        n=rec["n_override"])
-    mpc = RacingMPC(cfg, model, device="cpu")
+    jmpc, mpc = scenario_mpcs(rec["scenario"], rec["n_override"])
 
-    fields = {k[4:]: v for k, v in d.items() if k.startswith("inp_")}
-    rng = np.random.default_rng(0)
-    batch = {k: np.repeat(np.asarray(v)[None], replicas, 0) for k, v in fields.items()}
-    for k in ("x_ic", "X_ref"):
-        noise = 1 + 2e-7 * rng.standard_normal(batch[k].shape)
-        noise[0] = 1.0
-        batch[k] = (batch[k] * noise).astype(np.float32)
-    out, _ = mpc.solve_batch(mpc_input_from_arrays(batch, device="cpu"))
+    fields = chip_smoke.acc_fields(d)
+    out, _ = mpc.solve_batch(mpc_input_from_arrays(chip_smoke.acc_copies(d, replicas),
+                                                   device="cpu"))
     tag = rec["tag"]
     assert np_of(out.solved).all(), f"{tag}: not every copy converged"
 
@@ -203,14 +200,7 @@ def replay_instance(rec, d, replicas: int, gates: dict):
     assert tail < tail_gate, f"{tag} steer tail median {tail:.2e}"
 
     # quality: each copy's primal packed into the reference QP's variables
-    jp = jc.load_ros_params(jc.PARAM_DIR / "barc_base.param.yaml",
-                            jc.PARAM_DIR / "barc_single_track.param.yaml")
-    jmodel = JModel(jc.vehicle_config_from_params(jp),
-                    jc.single_track_config_from_params(jp))
-    jcfg = jc.mpc_config_from_params(
-        jc.load_ros_params(jc.PARAM_DIR / f"{rec['scenario']}.param.yaml"),
-        n=rec["n_override"])
-    qp = build_reference_qp(jmodel, jcfg, JInput(**fields))
+    qp = build_reference_qp(jmpc.model, jmpc.config, JInput(**fields))
     L = qp.layout
     gaps = []
     for r in range(replicas):

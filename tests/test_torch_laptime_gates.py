@@ -64,6 +64,8 @@ def test_barc_lmpc_beats_tracking(barc_lmpc_run):
     cs, _ = barc_lmpc_run
     trk = CoSimulation(_SCENARIOS["barc_tracking_mpc"], device=DEVICE)
     drive(trk, 3, 1400)
+    print(f"\nport BARC tracking on {DEVICE}: lap times {trk.lap_times} s over "
+          f"{len(trk.telemetry)} cycles; fallback rate {fallback_rate(trk):.4f}")
     assert len(trk.lap_times) >= 3, "tracking controller failed to lap"
     lmpc_med, trk_med = float(np.median(cs.lap_times)), float(np.median(trk.lap_times))
     assert lmpc_med < trk_med, f"no learning benefit: LMPC {lmpc_med:.2f}s vs {trk_med:.2f}s"
@@ -73,11 +75,18 @@ def test_barc_lmpc_beats_tracking(barc_lmpc_run):
 def test_putnam_short_lmpc_runs():
     cs = CoSimulation(_SCENARIOS["putnam_short_lmpc"], device=DEVICE)
     summary = cs.run(200)
-    assert summary["fallback_rate"] <= 0.02, summary["fallback_rate"]
     v = [t.state[3] for t in cs.telemetry[-50:]]
+    ms = np.array([t.solve_time * 1e3 for t in cs.telemetry])
+    print(f"\nport Putnam LMPC on {DEVICE}: {len(cs.telemetry)} cycles, fallback rate "
+          f"{summary['fallback_rate']:.4f}, mean speed of the last 50 {np.mean(v):.2f} m/s, "
+          f"laps {cs.lap_times}, cycle wall ms median {np.median(ms[1:]):.1f}")
+    assert summary["fallback_rate"] <= 0.02, summary["fallback_rate"]
     assert np.mean(v) > 8.0, f"IAC car not at speed: {np.mean(v):.1f} m/s"
 
 
 def test_putnam_config_a_smoke():
     cs = CoSimulation(_SCENARIOS["putnam_config_a_tracking_mpc"], n_override=40, device=DEVICE)
-    assert cs.run(60)["fallback_rate"] <= 0.1
+    fallback = cs.run(60)["fallback_rate"]
+    print(f"\nport Putnam config A tracking (N=40) on {DEVICE}: 60 cycles, fallback rate "
+          f"{fallback:.4f}")
+    assert fallback <= 0.1

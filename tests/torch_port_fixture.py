@@ -29,7 +29,9 @@ observations between plant and controller and an actuation outage (see
 ``reference_continuous_run``); ``stack`` holds the LQR and the legacy
 controller on the inputs ``chip_smoke.stack_problem`` makes (see
 ``compute_stack``); ``BUS_CASES`` holds runs of ``BusCoSimulation``, the
-two nodes over the native bus (see ``reference_bus_run``).
+two nodes over the native bus (see ``reference_bus_run``); ``ENTRY_CASE``
+holds the reference's ``__graft_entry__.entry()`` solve (see
+``compute_entry``).
 
 Run from the repository root:
 
@@ -94,6 +96,8 @@ LEGACY_MOVED = 4
 # bus co-simulation case -> (launch scenario, cycles, moved re-runs,
 # BusCoSimulation arguments): tests/test_native.py's smoke run
 BUS_CASES = {"bus_barc_tracking_mpc_n10": ("barc_tracking_mpc", 5, 4, {"n_override": 10})}
+# the flagship solve of __graft_entry__.entry(): one scenario (N=20, K=48)
+ENTRY_CASE = "entry_barc_n20_k48"
 
 
 def fixture_path(case: str) -> Path:
@@ -763,7 +767,6 @@ def compute(case: str) -> dict:
     import jax
     import jax.numpy as jnp
     from racing_lmpc_tpu.benchmarks import build_barc_lmpc, make_scenario_batch
-    from racing_lmpc_tpu.mpc.reference_qp import ReferenceQP, solve_dense_qp_f64
 
     n_horizon, num_ss, per_lap, batch = CASES[case]
     _, track, _, mpc, manager = build_barc_lmpc(
@@ -785,11 +788,33 @@ def compute(case: str) -> dict:
         pert.append(mpc.solve_batch(
             inp._replace(x_ic=perturb(inp.x_ic), X_ref=perturb(inp.X_ref)),
             z0, no_warm)[0])
+    U_star, obj_star = certified_optima(mpc, inp)
+    arrays = {f"inp_{k}": np.asarray(v) for k, v in inp._asdict().items()
+              if v is not None}
+    arrays.update(
+        U_optm=np.asarray(out.U_optm), obj=np.asarray(out.obj),
+        solved=np.asarray(out.solved), r_prim=np.asarray(out.r_prim),
+        r_dual=np.asarray(out.r_dual),
+        U_pert=np.stack([np.asarray(o.U_optm) for o in pert]),
+        obj_pert=np.stack([np.asarray(o.obj) for o in pert]),
+        solved_pert=np.stack([np.asarray(o.solved) for o in pert]),
+        U_star=U_star, obj_star=obj_star, scale_u=np.asarray(mpc.scale_u))
+    return arrays
+
+
+def certified_optima(mpc, inp) -> tuple[np.ndarray, np.ndarray]:
+    """(U_star, obj_star): the controls and objective of the certified
+    float64 optimum (``mpc.reference_qp.solve_dense_qp_f64``) of each lane's
+    condensed QP of the reference's ``mpc`` on the batch ``inp``; NaN where
+    it does not certify."""
+    import jax
+    from racing_lmpc_tpu.mpc.reference_qp import ReferenceQP, solve_dense_qp_f64
     with jax.default_matmul_precision("highest"):
         data, aux = jax.jit(jax.vmap(mpc._build_qp))(inp)
     P, q, A, l, u = (np.asarray(a, np.float64) for a in data)
     MU, mu0 = np.asarray(aux[2], np.float64), np.asarray(aux[3], np.float64)
     su = np.asarray(mpc.scale_u)
+    batch = P.shape[0]
     U_star = np.full((batch, mpc.N - 1, mpc.nu), np.nan)
     obj_star = np.full((batch,), np.nan)
     for b in range(batch):
@@ -802,25 +827,62 @@ def compute(case: str) -> dict:
             continue
         U_star[b] = (MU[b] @ z[:mpc.layout.nuu] + mu0[b]).reshape(mpc.N - 1, mpc.nu) * su
         obj_star[b] = 0.5 * z @ (Pb @ z) + q[b] @ z
-    arrays = {f"inp_{k}": np.asarray(v) for k, v in inp._asdict().items()
-              if v is not None}
+    return U_star, obj_star
+
+
+def compute_entry() -> dict:
+    """The reference's ``__graft_entry__.entry()``: its ``fn`` jitted on its
+    example arguments, and the ``RacingMPC._solve_impl`` call that ``fn``
+    makes, jitted on those arguments and on ``PERT_SEEDS`` copies of them
+    with x_ic and X_ref moved as ``compute`` moves a batch; with the
+    certified optimum of its condensed QP.  Stored as a batched fixture of
+    one lane (the scenario is lane 0 of ``make_scenario_batch(batch=1)``):
+    what ``compute`` stores, plus ``U_entry``, ``fn``'s own output."""
+    _jax_on_cpu()
+    import jax
+    import jax.numpy as jnp
+    import __graft_entry__
+    from racing_lmpc_tpu.benchmarks import build_barc_lmpc, make_scenario_batch
+
+    fn, (single, z, valid) = __graft_entry__.entry()
+    U_entry = np.asarray(jax.jit(fn)(single, z, valid))
+    # the same build as the entry's, for the rest of _solve_impl's output
+    _, track, _, mpc, manager = build_barc_lmpc(n_horizon=20, num_ss=48)
+    inp = make_scenario_batch(mpc, track, manager, batch=1, seed=SEED)
+    for a, b in zip(inp, single):
+        assert a is None or np.array_equal(np.asarray(a)[0], np.asarray(b))
+    solve = jax.jit(lambda i: mpc._solve_impl(i, z, valid)[0])
+
+    def lane(inp_b):
+        return solve(jax.tree.map(lambda a: jnp.asarray(a)[0], inp_b))
+
+    out = lane(inp)
+    assert np.array_equal(np.asarray(out.U_optm), U_entry)
+    fields = {k: np.asarray(v) for k, v in inp._asdict().items() if v is not None}
+    pert = [lane(inp._replace(**{k: jnp.asarray(v) for k, v in
+                                 _moved_fields(fields, s).items()}))
+            for s in range(PERT_SEEDS)]
+    U_star, obj_star = certified_optima(mpc, inp)
+    one = lambda a: np.asarray(a)[None]  # noqa: E731
+    arrays = {f"inp_{k}": v for k, v in fields.items()}
     arrays.update(
-        U_optm=np.asarray(out.U_optm), obj=np.asarray(out.obj),
-        solved=np.asarray(out.solved), r_prim=np.asarray(out.r_prim),
-        r_dual=np.asarray(out.r_dual),
-        U_pert=np.stack([np.asarray(o.U_optm) for o in pert]),
-        obj_pert=np.stack([np.asarray(o.obj) for o in pert]),
-        solved_pert=np.stack([np.asarray(o.solved) for o in pert]),
-        U_star=U_star, obj_star=obj_star, scale_u=su)
+        U_entry=U_entry[None], U_optm=one(out.U_optm), obj=one(out.obj),
+        solved=one(out.solved), r_prim=one(out.r_prim), r_dual=one(out.r_dual),
+        U_pert=np.stack([one(o.U_optm) for o in pert]),
+        obj_pert=np.stack([one(o.obj) for o in pert]),
+        solved_pert=np.stack([one(o.solved) for o in pert]),
+        U_star=U_star, obj_star=obj_star, scale_u=np.asarray(mpc.scale_u))
     return arrays
 
 
 def main() -> None:
     FIXTURE_DIR.mkdir(parents=True, exist_ok=True)
     for case in sys.argv[1:] or [*CASES, *CTRL_CASES, *ADMM_CASES, *CONT_CASES, "stack",
-                                 *NL_CASES, *MODEL_CTRL_FIXTURES, *BUS_CASES]:
+                                 *NL_CASES, *MODEL_CTRL_FIXTURES, *BUS_CASES, ENTRY_CASE]:
         path = fixture_path(case)
-        if case in BUS_CASES:
+        if case == ENTRY_CASE:
+            arrays = compute_entry()
+        elif case in BUS_CASES:
             arrays = compute_bus(case)
         elif case == "nl_qp_n10":
             arrays = compute_nl_qp()
