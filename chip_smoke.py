@@ -57,10 +57,10 @@
    braking scenario (``solve_sqp``, N=10), each within its test's gates and
    breaking them without the rows; the double-track braking scenario as a
    batch of 256 drawn lanes (N=20) held to the reference's spread over its
-   9 stored runs; the kinematic (N=10, 60 cycles) and double-track (N=25,
-   the first 20 of the test's 150 cycles) closed loops of
-   tests/test_closed_loop.py within the test's gates, each with 5
-   teacher-forced replays held to the reference's spread.
+   9 stored runs; the kinematic (N=10, the first 20 of the test's 60
+   cycles) and double-track (N=25, the first 10 of the test's 150 cycles)
+   closed loops of tests/test_closed_loop.py within the test's gates, each
+   with 5 teacher-forced replays held to the reference's spread.
 
 7. The entry point: ``racing_lmpc_torch.entry.entry()`` (the twin of
    ``__graft_entry__.entry``), its ``fn`` on its example arguments: finite
@@ -77,9 +77,23 @@
    certified on the card on every instance; the port's f64 OSQP
    (``mpc/osqp_ref.py``) reproducing the reference-class wander.
 
-The teacher-forced replays of every controller path and the accuracy phase
-run after all the timed phases, side by side in processes of their own on
-the same card (``settle_replays``), and are held to their gates then.
+9. The bench: ``racing_lmpc_torch.bench.run`` (what ``python -m
+   racing_lmpc_torch.bench`` measures) at its smallest settings: every
+   measurement once, one repetition, chains of 2, the sweep at 512 only,
+   and the controller chains of all five launch scenarios; every number
+   finite, the b256 and N=40 batches' solved lanes within the batched
+   gates' allowance of the stored reference runs, every scenario's QP
+   within the kernel's size with ``chol_tri_inv`` launched every cycle,
+   ``mfu_vs_f32_peak`` in (0, 1].  Each scenario's controller chain also
+   runs cycle by cycle from the reference's own start of each cycle
+   (``bench_rt_<scenario>.npz``): no fallback where the reference's runs
+   solved, the objective and the controls within the port's floors or the
+   reference's spread over its moved runs.
+
+The teacher-forced replays of every controller path, the accuracy phase
+and the bench's chains from the reference's starts run after all the timed
+phases, side by side in processes of their own on the same card
+(``settle_replays``), and are held to their gates then.
 
 Every path is driven with every launch counter set to 0 just before and
 read just after.  Prints one ``{"kernels": [...]}`` line, and as its last
@@ -90,7 +104,6 @@ script exits non-zero without that last line.  It imports nothing of JAX.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -145,10 +158,22 @@ ENTRY_CASE = "entry_barc_n20_k48"
 # moved by one f32 rounding (tests/_torch_twin.py::replay_instance)
 ACC_DIR = ROOT / "tests" / "data" / "acc_instances"
 ACC_REPLICAS = 9
+# the bench's smallest settings (racing_lmpc_torch/bench.py::run)
+BENCH_SMOKE = {"reps": 1, "chain": 2, "sweep": (512,)}
+# the launch scenarios whose controller chain (bench.rt_chain) is replayed
+# cycle by cycle from the reference's stored runs, as
+# tests/torch_port_fixture.py wrote them (bench_rt_<scenario>.npz)
+BENCH_RT_SCENARIOS = ("barc_lmpc", "barc_tracking_mpc", "putnam_short_lmpc",
+                      "putnam_short_tracking_mpc", "putnam_config_a_tracking_mpc")
+# the floors of those replays' readings (rt_reading): a fallback where the
+# reference solved, the objective (relative), the longitudinal and the
+# steering control (over scale_u), the port's floors
+RT_FLOORS = (0.0, 1e-3, 1e-3, 3e-3)
 
-# H100 SXM published peaks (NVIDIA data sheet) for the roofline bound
+# H100 SXM published peaks (NVIDIA data sheet) for the roofline bound; the
+# f32 peak outside the tensor cores is racing_lmpc_torch.bench's
+# F32_PEAK_FLOP_PER_S
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12          # f32 outside the tensor cores
 # f32 instructions a second outside the tensor cores, one operation each
 # (132 SMs x 128 lanes x 1.98 GHz): the rate of separately rounded
 # multiplies and subtracts, which cannot pair into FMAs
@@ -228,6 +253,7 @@ def kernel_phase(device) -> dict:
     every operation alike); returns the numbers of the main path's
     (256, 87, 87) case."""
     import torch
+    from racing_lmpc_torch.bench import F32_PEAK_FLOP_PER_S
     from racing_lmpc_torch.ops import linalg
 
     def rel_err(a, b):
@@ -271,6 +297,11 @@ def kernel_phase(device) -> dict:
     cases.append(("H, entry() N=20 K=48", spd_batch(rng, 1, 87), True))
     for scenario, n in acc_qp_sizes().items():
         cases.append((f"H, accuracy {scenario}", spd_batch(rng, ACC_REPLICAS, n), True))
+    # the bench's widest batch, and the IAC tracking controller (N=80) that
+    # its controller chains drive
+    cases.append(("H, bench sweep N=20 K=48", spd_batch(rng, 1024, 87), True))
+    cases.append(("H, IAC tracking controller N=80",
+                  spd_batch(rng, 1, tracking_qp_size(device)), True))
     main = None
     for name, Hn, timed in cases:
         H = torch.as_tensor(Hn, device=device)
@@ -296,9 +327,9 @@ def kernel_phase(device) -> dict:
             # the lower triangle of each symmetric input read once (all the
             # function needs), each dense output written once
             bytes_ms = G * (n * (n + 1) // 2 + n * n) * 4 / HBM_BYTES_PER_S * 1e3
-            flops_ms = G * (2.0 / 3.0) * n ** 3 / F32_FLOP_PER_S * 1e3
+            flops_ms = G * (2.0 / 3.0) * n ** 3 / F32_PEAK_FLOP_PER_S * 1e3
             # one matrix's pivots are a dependent chain on one SM
-            floor_ms = (2.0 / 3.0) * n ** 3 / (F32_FLOP_PER_S / SM_COUNT) * 1e3
+            floor_ms = (2.0 / 3.0) * n ** 3 / (F32_PEAK_FLOP_PER_S / SM_COUNT) * 1e3
             line += (f"; kernel {ms:.4f} ms a call ({dev:.4f} ms on the device), plain "
                      f"{plain_ms:.4f} ms, torch.linalg yardstick {lib_ms:.4f} ms a call "
                      f"({lib_dev:.4f} ms on the device), bound "
@@ -341,6 +372,14 @@ def kernel_phase(device) -> dict:
     return main
 
 
+def tracking_qp_size(device) -> int:
+    """The condensed QP size n of the two Putnam tracking scenarios (the
+    IAC car's tracking MPC, N=80), read from the port's controller."""
+    from racing_lmpc_torch.launch.runner import _SCENARIOS, CoSimulation
+    return CoSimulation(_SCENARIOS["putnam_short_tracking_mpc"],
+                        device=device).controller.mpc.layout.n
+
+
 def acc_qp_sizes() -> dict:
     """The condensed QP size n of each pinned instance's scenario (the
     length of its stored warm start ``zw``)."""
@@ -374,6 +413,7 @@ def gj_kernel_phase(device) -> dict:
     numbers of the (65536, 16, 16) case, with every timed shape's under
     ``shapes``."""
     import torch
+    from racing_lmpc_torch.bench import F32_PEAK_FLOP_PER_S
     from racing_lmpc_torch.ops import linalg
 
     rng = np.random.default_rng(1)
@@ -432,7 +472,7 @@ def gj_kernel_phase(device) -> dict:
             # each input read once, each inverse written once; 2 b^3 flops a
             # matrix (LAPACK's getrf + getri count of an inverse)
             bytes_ms = 8.0 * G * b * b / HBM_BYTES_PER_S * 1e3
-            flops_ms = 2.0 * G * b ** 3 / F32_FLOP_PER_S * 1e3
+            flops_ms = 2.0 * G * b ** 3 / F32_PEAK_FLOP_PER_S * 1e3
             # the bit-exact algorithm's own floor (kernel note): 4 b^3
             # separately rounded multiplies and subtracts and 2 b^2 IEEE
             # divisions (8 instructions each) a matrix at the f32 issue rate
@@ -840,6 +880,8 @@ def replay_job(case: str, r: int) -> dict:
     device = torch.device("cuda", 0)
     if case == "accuracy":
         return accuracy_phase(device)
+    if case.startswith("bench_rt_"):
+        return bench_rt_replay(case[len("bench_rt_"):], r, device)
     fx = ctrl_fixture(case)
     if case in MODEL_CTRL_CASES:
         return replay(model_controller(case, device, n=int(fx["n"]))[0], fx, r)
@@ -1554,9 +1596,10 @@ MODEL_CTRL_CASES = {
     "ctrl_kinematic": ("kinematic", 10, 0.025, 60, (0.1, 0.05, 0.0, 1.0)),
     "ctrl_double_track": ("double_track", 25, 0.01, 150, (0.1, 0.05, 0.0, 0.0, 0.0, 1.0)),
 }
-# the cycles the card drives: the double-track's cut to fit the script's
-# time (its host time a cycle is ~3x the kinematic's)
-MODEL_CTRL_DEPTH = {"ctrl_kinematic": 60, "ctrl_double_track": 20}
+# the cycles the card drives, prefixes of the stored runs cut to fit the
+# script's time (the double-track's host time a cycle is ~3x the
+# kinematic's; both cut further when the bench phase came in)
+MODEL_CTRL_DEPTH = {"ctrl_kinematic": 20, "ctrl_double_track": 10}
 MODEL_CTRL_REPLAYS = 5
 # the JAX tests' closed-loop gates: fallbacks, max |lateral offset|, final speed
 MODEL_CTRL_GATES = {"fallbacks": 5, "lat": 0.2, "speed": 1.0}
@@ -1973,6 +2016,156 @@ def build_native_async():
     return wait
 
 
+def numbers_of(d) -> list[float]:
+    """Every number of a nested dict of the bench's line (flags left out)."""
+    out = []
+    for v in d.values():
+        if isinstance(v, dict):
+            out += numbers_of(v)
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            out.append(float(v))
+    return out
+
+
+def drive_bench(device) -> dict:
+    """The port's bench (``racing_lmpc_torch.bench.run``) at
+    ``BENCH_SMOKE``, with every launch count set to 0 just before and read
+    just after; its line printed as the bench prints it, and held: every
+    number finite, ``mfu_vs_f32_peak`` in (0, 1], the b256 and N=40
+    batches' solved lanes as near the stored reference runs as the batched
+    gates allow, and in every launch scenario the QP within the kernel's
+    size, finite objectives and ``chol_tri_inv`` launched every cycle.  The
+    chains start from the card's own bootstrap, which no reference run
+    shares, so their fallbacks are printed, not held: one f32 rounding of
+    a cycle's input can flip its ``solved`` flag, in the reference too
+    (``tests/torch_port_rti_fallback.py``); they are held on the chains
+    started from the reference's own states (``bench_rt_replays``)."""
+    import torch
+    from racing_lmpc_torch import bench
+    from racing_lmpc_torch.ops import linalg
+    t0 = time.perf_counter()
+    zero_launches()
+    result, detail = bench.run(device, **BENCH_SMOKE)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(json.dumps(result), flush=True)
+    extra = result["extra"]
+    check(all(np.isfinite(numbers_of(result))), "bench: a number is not finite")
+    check(0.0 < extra["mfu_vs_f32_peak"] <= 1.0,
+          f"bench: mfu_vs_f32_peak {extra['mfu_vs_f32_peak']} not in (0, 1]")
+    for case, key in (("barc_n20_k48_b256", "solved_b256"), ("barc_n40_k96_b128", "solved_n40")):
+        fx = load_batch_fixture(case)
+        differs = int((detail[key] != fx["solved"]).sum())
+        allowed = gate_limits(fx)["solved differs"]
+        print(f"bench {case}: solved {int(detail[key].sum())} of {len(fx['solved'])}, "
+              f"{differs} lanes differ from the reference run (allowed {allowed:g})", flush=True)
+        check(differs <= allowed, f"bench {case}: {differs} solved lanes differ")
+    for name, d in detail["shipped"].items():
+        check(d["qp_n"] <= linalg.chol_max_n(), f"bench {name}: QP n={d['qp_n']} over the kernel's")
+        check(bool(np.isfinite(d["obj"]).all()), f"bench {name}: objective not finite")
+        check(d["chol_tri_inv_per_cycle"] > 0, f"bench {name}: chol_tri_inv not launched")
+    check(launches["chol_tri_inv"] > 0 and launches["gj_inverse"] == 0,
+          f"bench: launches {launches}")
+    print(f"path bench: launches {launches}, {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def bench_rt_start(fx, c: int, r: int) -> dict:
+    """The start of cycle ``c`` of the reference's teacher-forced run ``r``
+    of the bench's controller chain (``bench_rt_<scenario>.npz``): run 0
+    as stored, run r > 0 with ``last_X`` and ``x0`` moved by 1 + 2e-7 N(0,
+    1) from numpy seed r, each cycle's two moves drawn in turn, as
+    tests/torch_port_fixture.py::compute_bench_rt drew them."""
+    st = {k: fx[f"tf_state_{k}"][c] for k in ("last_X", "last_U", "last_dU", "lam")}
+    x0 = fx["tf_x0"][c]
+    if r:
+        rng = np.random.default_rng(r)
+        for _ in range(c + 1):          # the earlier cycles' draws, then c's
+            n_X, n_x0 = rng.standard_normal(st["last_X"].shape), rng.standard_normal(x0.shape)
+        st["last_X"] = (st["last_X"] * (1 + 2e-7 * n_X)).astype(np.float32)
+        x0 = (x0 * (1 + 2e-7 * n_x0)).astype(np.float32)
+    return {**st, "x0": x0, "u0": fx["tf_u0"][c]}
+
+
+def bench_rt_replay(scenario: str, r: int, device) -> dict:
+    """``bench.rt_chain`` of a fresh port controller of ``scenario``, each
+    cycle one step from the start of that cycle in the reference's
+    teacher-forced run ``r`` (``bench_rt_start``), with its safe set, speed
+    limit and scale: each cycle's fallback, objective and controls."""
+    import torch
+    from racing_lmpc_torch import bench
+    from racing_lmpc_torch.control.loop import ControllerState
+    from racing_lmpc_torch.launch.runner import _SCENARIOS, CoSimulation
+    fx = load_fixture(f"bench_rt_{scenario}")
+    ctrl = CoSimulation(_SCENARIOS[scenario], device=device).controller
+    ctrl.speed_limit, ctrl.speed_scale = float(fx["speed_limit"]), float(fx["speed_scale"])
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+    infos = []
+    for c in range(len(fx["tf_obj"])):
+        start = bench_rt_start(fx, c, r)
+        state = ControllerState(*(dev(start[k]) for k in ControllerState._fields))
+        infos += bench.rt_chain(ctrl, state, dev(start["x0"]), dev(start["u0"]),
+                                dev(fx["ss_x"]), dev(fx["ss_j"]), 1)[1]
+    return {"used_fallback": np.array([bool(i.used_fallback) for i in infos]),
+            "obj": np.array([float(i.output.obj) for i in infos]),
+            "U": np.stack([i.output.U_optm.cpu().numpy() for i in infos])}
+
+
+def bench_rt_runs(fx) -> list[dict]:
+    """The reference's teacher-forced runs of the bench's chain: the run
+    itself, then its runs from starts moved by one f32 rounding."""
+    return [{"used_fallback": fx["tf_used_fallback"], "obj": fx["tf_obj"],
+             "U": fx["tf_U_optm"]}] + [
+        {"used_fallback": f, "obj": o, "U": U} for f, o, U in
+        zip(fx["tf_used_fallback_pert"], fx["tf_obj_pert"], fx["tf_U_optm_pert"])]
+
+
+def rt_reading(a: dict, b: dict, su: np.ndarray) -> np.ndarray:
+    """How far run ``a`` of the bench's chain lies from run ``b``, cycle by
+    cycle: a fallback where ``b`` solved, the objective's gap (relative),
+    and the largest gaps of the longitudinal and the steering control (over
+    ``scale_u``), (cycles, 4)."""
+    dU = np.abs(np.asarray(a["U"], np.float64) - b["U"]) / su
+    return np.stack([(a["used_fallback"] & ~b["used_fallback"]).astype(np.float64),
+                     np.abs(np.asarray(a["obj"], np.float64) - b["obj"])
+                     / np.maximum(np.abs(b["obj"]), 1e-12),
+                     dU[..., 0].max(-1), dU[..., -1].max(-1)], axis=-1)
+
+
+def bench_rt_replays() -> list[tuple]:
+    """The pending replays (``settle_replays``) of the bench's controller
+    chain in every launch scenario: each of the reference's teacher-forced
+    runs replayed, every cycle from that run's own start of it.  Held cycle
+    by cycle as the controller gates hold theirs: every objective finite,
+    and the median over the runs of each reading (``rt_reading`` of the
+    port's run r against the reference's run r) within ``RT_FLOORS`` or the
+    reference's worst reading between two of its own runs, where that is
+    wider."""
+    def holder(scenario):
+        def held(results):
+            fx = load_fixture(f"bench_rt_{scenario}")
+            refs, su = bench_rt_runs(fx), fx["scale_u"]
+            check(all(np.isfinite(r["obj"]).all() for r in results),
+                  f"bench_rt {scenario}: objective not finite")
+            got = np.median([rt_reading(p, q, su) for p, q in zip(results, refs)], axis=0)
+            limit = np.max([np.maximum(rt_reading(p, q, su), RT_FLOORS)
+                            for i, p in enumerate(refs) for j, q in enumerate(refs)
+                            if i != j], axis=0)
+            print(f"bench_rt {scenario} vs reference, {len(results)} runs each cycle from "
+                  f"the reference's start: fallbacks {[r['used_fallback'].tolist() for r in results]}"
+                  f" (reference {[r['used_fallback'].tolist() for r in refs]}); median "
+                  f"fallback where reference solved, objective, lon, steer gaps by cycle "
+                  f"{np.round(got, 7).tolist()}, limits {np.round(limit, 7).tolist()}",
+                  flush=True)
+            check(not got[:, 0].any(), f"bench_rt {scenario}: fallback where the reference solved")
+            check(bool((got <= limit).all()), f"bench_rt {scenario}: a gap over its limit")
+        return held
+    return [(f"bench_rt_{scenario}", 1 + len(load_fixture(f"bench_rt_{scenario}")["tf_obj_pert"]),
+             holder(scenario)) for scenario in BENCH_RT_SCENARIOS]
+
+
 def drive_native(build_s: float | None) -> None:
     """The native host runtime, built at set-up (``build_native_async``):
     its table loader against ``np.loadtxt`` on the BARC track; its KD-tree's
@@ -2276,10 +2469,8 @@ def main() -> int:
     check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
     check(torch.get_float32_matmul_precision() == "highest",
           "f32 matmul precision is not 'highest'")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi, flush=True)
+    from racing_lmpc_torch.bench import device_line
+    print(device_line(), flush=True)
     device = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
@@ -2331,6 +2522,7 @@ def main() -> int:
     # the process group is destroyed before the replays spawn their processes
     per_path["sharded_barc_n20_k48_b256"] = drive_scaleout(device)
     drive_lu(device)
+    per_path["bench"] = drive_bench(device)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     def settle_accuracy(results: list[dict]) -> None:
@@ -2344,6 +2536,7 @@ def main() -> int:
         check(res["launches"]["chol_tri_inv"] > 0 and res["launches"]["gj_inverse"] == 0,
               f"accuracy: launches {res['launches']}")
     pending.insert(0, ("accuracy", 1, settle_accuracy))
+    pending += bench_rt_replays()
     settle_replays(pending)
     print(f"replays done in {time.perf_counter() - t0:.1f} s", flush=True)
 

@@ -147,6 +147,13 @@ class VehicleModel:
     def from_base_control(self, x_base: Tensor, u_base: Tensor) -> Tensor:
         return u_base
 
+    def to_base_state_jacobian(self, x: Tensor, u: Tensor) -> tuple[Tensor, Tensor]:
+        """(d to_base_state/dx, d to_base_state/du) by forward mode
+        (``base.py:147-152``), over any leading batch shape: the base-state
+        stage costs of models whose base conversion is nonlinear."""
+        _, Jx, Ju = self._forward_jacobian(self.to_base_state, x, u)
+        return Jx, Ju
+
     def cost_state_indices(self) -> dict:
         """Where contour / heading / velocity / vy / vyaw live in THIS
         model's state layout, for the MPC stage cost (``base.py:155-170``)."""

@@ -31,6 +31,10 @@ class PeriodicSpline(NamedTuple):
     s0: Tensor
     period: Tensor
 
+    @property
+    def num_channels(self) -> int:
+        return self.coeffs.shape[-1]
+
     def _locate(self, s: Tensor) -> tuple[Tensor, Tensor]:
         # torch.remainder is the floored modulo of jnp.mod; side="right" of
         # jnp.searchsorted is right=True here

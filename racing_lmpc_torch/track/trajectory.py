@@ -117,6 +117,12 @@ class RacingTrajectory:
         """Centerline (x, y) at abscissa s -> (..., 2)."""
         return self.xy_spline.eval(s)
 
+    def x(self, s: Tensor) -> Tensor:
+        return self.xy_spline.eval(s)[..., 0]
+
+    def y(self, s: Tensor) -> Tensor:
+        return self.xy_spline.eval(s)[..., 1]
+
     def velocity(self, s: Tensor) -> Tensor:
         return self.scalar_spline.eval(s)[..., 0]
 

@@ -59,6 +59,18 @@ def test_discrete_jacobian_matches_jax(simplify):
     assert np.array_equal(A2.reshape(64, 6, 6).numpy(), At)
 
 
+def test_to_base_state_jacobian_matches_jax():
+    """``VehicleModel.to_base_state_jacobian`` (base.py:147-152) of the
+    single-track model, whose base state is its own: (I, 0)."""
+    jm_, tm_ = _models(True)
+    x, u, _, _ = _states(np.random.default_rng(3), 16, tm_.nu)
+    (Jxj, Juj), (Jxt, Jut) = twin(jax.vmap(jm_.to_base_state_jacobian),
+                                  tm_.to_base_state_jacobian, x, u)
+    assert Jxt.dtype == Jut.dtype == np.float32
+    assert np.array_equal(Jxt, Jxj) and np.array_equal(Jut, Juj)
+    assert np.array_equal(Jxt, np.broadcast_to(np.eye(6, dtype=np.float32), (16, 6, 6)))
+
+
 @pytest.mark.parametrize("simplify", [True, False])
 def test_dynamics_and_integrators_match_jax(simplify):
     jm_, tm_ = _models(simplify)

@@ -225,6 +225,24 @@ def test_model_matches_jax(kind):
     assert (sj is None and st is None) or np.array_equal(st, sj)
 
 
+@pytest.mark.parametrize("kind", ["kinematic", "double_track_barc", "double_track_iac"])
+def test_to_base_state_jacobian_matches_jax(kind):
+    """``VehicleModel.to_base_state_jacobian`` (base.py:147-152): the
+    Jacobians of the nonlinear base conversions, in f32, over any leading
+    batch shape."""
+    jm_, tm_ = _pair(kind)
+    x, u, _, _ = _samples(kind, np.random.default_rng(4), 32)
+    (Jxj, Juj), (Jxt, Jut) = twin(jax.vmap(jm_.to_base_state_jacobian),
+                                  tm_.to_base_state_jacobian, x, u)
+    for got, want in ((Jxt, Jxj), (Jut, Juj)):
+        assert got.dtype == np.float32
+        assert got.shape == want.shape
+        assert rel_err(got, want) < 1e-5
+    Jx2, _ = tm_.to_base_state_jacobian(torch.as_tensor(x).reshape(4, 8, -1),
+                                        torch.as_tensor(u).reshape(4, 8, -1))
+    assert np.array_equal(Jx2.reshape(Jxt.shape).numpy(), Jxt)
+
+
 def test_kinematic_closed_form():
     """tests/test_models.py:186-218 on the port: the division-free yaw rate,
     the slip-angle velocities and the base-state round trip."""

@@ -65,6 +65,21 @@ def test_track_accessors_match_jax(barc):
     assert t.total_length == j.total_length
 
 
+def test_spline_channels_and_track_xy_match_jax(barc):
+    """``PeriodicSpline.num_channels`` and ``RacingTrajectory.x`` / ``.y``
+    (spline.py:41-43, trajectory.py:131-135)."""
+    j, t = barc
+    for name in ("xy_spline", "scalar_spline"):
+        assert getattr(t, name).num_channels == getattr(j, name).num_channels
+    assert t.xy_spline.num_channels == 2
+    s = f32(np.linspace(-3, 40, 301))
+    pos = t.position(torch.as_tensor(s)).numpy()
+    for i, name in enumerate(("x", "y")):
+        got = getattr(t, name)(torch.as_tensor(s)).numpy()
+        assert rel_err(got, np.asarray(getattr(j, name)(jnp.asarray(s)))) < 1e-5, name
+        assert np.array_equal(got, pos[:, i]), name
+
+
 def test_frenet_round_trip_matches_jax(barc):
     j, t = barc
     rng = np.random.default_rng(7)

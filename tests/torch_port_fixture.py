@@ -31,7 +31,10 @@ controller on the inputs ``chip_smoke.stack_problem`` makes (see
 ``compute_stack``); ``BUS_CASES`` holds runs of ``BusCoSimulation``, the
 two nodes over the native bus (see ``reference_bus_run``); ``ENTRY_CASE``
 holds the reference's ``__graft_entry__.entry()`` solve (see
-``compute_entry``).
+``compute_entry``); ``BENCH_CHAIN_CASES`` and ``BENCH_RT_CASES`` hold
+bench.py's dependent chains of solves and of controller cycles, which the
+port's bench (``racing_lmpc_torch/bench.py``) is held to (see
+``compute_bench_chain`` and ``compute_bench_rt``).
 
 Run from the repository root:
 
@@ -98,6 +101,16 @@ LEGACY_MOVED = 4
 BUS_CASES = {"bus_barc_tracking_mpc_n10": ("barc_tracking_mpc", 5, 4, {"n_override": 10})}
 # the flagship solve of __graft_entry__.entry(): one scenario (N=20, K=48)
 ENTRY_CASE = "entry_barc_n20_k48"
+# the dependent chains of bench.py:152-175 (racing_lmpc_torch/bench.py::
+# chain_solves): case -> (n_horizon, num_ss, chain length, batches), each
+# batch the leading lanes of bench.py's flagship batch of 256
+BENCH_CHAIN_CASES = {"bench_chain_n20_k48": (20, 48, 3, (1, 2))}
+# the controller chain of bench.py:57-112 (racing_lmpc_torch/bench.py::
+# rt_chain) of each launch scenario: case -> (launch scenario, chain
+# length, moved re-runs of the chain and of each cycle)
+BENCH_RT_CASES = {f"bench_rt_{name}": (name, 2, 4) for name in (
+    "barc_lmpc", "barc_tracking_mpc", "putnam_short_lmpc", "putnam_short_tracking_mpc",
+    "putnam_config_a_tracking_mpc")}
 
 
 def fixture_path(case: str) -> Path:
@@ -875,12 +888,149 @@ def compute_entry() -> dict:
     return arrays
 
 
+def compute_bench_chain(case: str) -> dict:
+    """bench.py's dependent chains (``:152-175``) on the leading lanes of
+    its flagship batch: ``chain`` solves jitted as one scan, step k+1 from
+    step k's ``X_optm[:, 1]``, the warm start carried, ``valid`` fixed.
+    Stores the inputs of the widest batch (``inp_<field>``) and, per batch
+    b, each step's ``obj_b<b>`` (chain, b), ``U_b<b>`` and ``solved_b<b>``,
+    with the same of ``PERT_SEEDS`` re-runs on x_ic and X_ref moved as
+    ``compute_entry`` moves them (``*_pert``)."""
+    _jax_on_cpu()
+    import jax
+    import jax.numpy as jnp
+    from racing_lmpc_tpu.benchmarks import build_barc_lmpc, make_scenario_batch
+
+    n_horizon, num_ss, chain, batches = BENCH_CHAIN_CASES[case]
+    _, track, _, mpc, manager = build_barc_lmpc(n_horizon=n_horizon, num_ss=num_ss)
+    inp = make_scenario_batch(mpc, track, manager, 256, seed=SEED)
+
+    def chain_solves(inp_b, z_b, valid_b):
+        def body(carry, _):
+            inp_c, z_c = carry
+            out_c, z_n = jax.vmap(mpc._solve_impl)(inp_c, z_c, valid_b)
+            return ((inp_c._replace(x_ic=out_c.X_optm[:, 1]), z_n),
+                    (out_c.obj, out_c.U_optm, out_c.solved))
+        return jax.lax.scan(body, (inp_b, z_b), None, length=chain)[1]
+
+    f = jax.jit(chain_solves)
+    fields = {k: np.asarray(v)[:max(batches)] for k, v in inp._asdict().items()
+              if v is not None}
+    arrays = {f"inp_{k}": v for k, v in fields.items()}
+    for b in batches:
+        def run(fl, b=b):
+            inp_b = type(inp)(**{k: jnp.asarray(v[:b]) for k, v in fl.items()})
+            return [np.asarray(a) for a in f(inp_b, jnp.zeros((b, mpc.layout.n), jnp.float32),
+                                             jnp.zeros((b,), bool))]
+        obj, U, solved = run(fields)
+        pert = [run(_moved_fields(fields, s)) for s in range(PERT_SEEDS)]
+        arrays.update({f"obj_b{b}": obj, f"U_b{b}": U, f"solved_b{b}": solved,
+                       f"obj_b{b}_pert": np.stack([p[0] for p in pert]),
+                       f"U_b{b}_pert": np.stack([p[1] for p in pert])})
+    arrays["scale_u"] = np.asarray(mpc.scale_u)
+    return arrays
+
+
+def compute_bench_rt(case: str) -> dict:
+    """bench.py's controller chain of a launch scenario (``:57-112``): the
+    reference's ``CoSimulation`` after one ``step()`` (bootstrap and first
+    cycle), the safe set queried once, then ``chain`` cycles of
+    ``MPCController._rti_step`` jitted as one scan, each from the previous
+    cycle's ``last_X[1]`` and ``u_apply``.  Stores the start (``state_*``,
+    ``x0``, ``u0``, ``ss_x``, ``ss_j``, ``speed_limit``, ``speed_scale``),
+    each cycle's ``obj``, ``U_optm``, ``u_apply`` and ``used_fallback``, and
+    the same of re-runs from ``last_X`` and ``x0`` moved by one f32
+    rounding (numpy seeds 1, 2, ...; ``*_pert``).
+
+    Each cycle is also stored teacher-forced (``tf_*``): the chain run one
+    jitted ``_rti_step`` at a time, with each cycle's start (``tf_state_*``,
+    ``tf_x0``, ``tf_u0``, by cycle) and its outputs, and each cycle run
+    again from its own start moved the same way (``tf_*_pert``, by moved
+    run and cycle): the yardstick of a port cycle started where the
+    reference's started."""
+    _jax_on_cpu()
+    import jax
+    import jax.numpy as jnp
+    from racing_lmpc_tpu.launch.runner import _SCENARIOS, CoSimulation
+
+    scenario, chain, moved = BENCH_RT_CASES[case]
+    cs = CoSimulation(_SCENARIOS[scenario])
+    cs.step()
+    ctrl = cs.controller
+    st = ctrl.state
+    ss_x, ss_j = ctrl._query_safe_set(st.last_X[-1])
+    lim = jnp.asarray(ctrl.speed_limit, jnp.float32)
+    sc = jnp.asarray(ctrl.speed_scale, jnp.float32)
+
+    def chain_steps(state, x0, u0):
+        def body(carry, _):
+            s, x, u = carry
+            s2, info = ctrl._rti_step(x, u, s, ss_x, ss_j, lim, sc)
+            return ((s2, s2.last_X[1], info.u_apply),
+                    (info.output.obj, info.output.U_optm, info.u_apply, info.used_fallback))
+        return jax.lax.scan(body, (state, x0, u0), None, length=chain)[1]
+
+    f = jax.jit(chain_steps)
+    x0 = st.last_X[0]
+    u0 = jnp.zeros((ctrl.mpc.nu,), jnp.float32)
+    keys = ("obj", "U_optm", "u_apply", "used_fallback")
+    runs = [f(st, x0, u0)]
+    for s in range(moved):
+        rng = np.random.default_rng(1 + s)
+
+        def move(a):
+            a = np.asarray(a)
+            return jnp.asarray((a * (1 + 2e-7 * rng.standard_normal(a.shape))).astype(np.float32))
+        runs.append(f(st._replace(last_X=move(st.last_X)), move(x0), u0))
+    arrays = {f"state_{k}": np.asarray(v) for k, v in st._asdict().items()}
+
+    def one_step(state, x, u):
+        s2, info = ctrl._rti_step(x, u, state, ss_x, ss_j, lim, sc)
+        return s2, (info.output.obj, info.output.U_optm, info.u_apply, info.used_fallback)
+    one = jax.jit(one_step)
+    starts, tf = [], []
+    s_c, x_c, u_c = st, x0, u0
+    for _ in range(chain):
+        starts.append((s_c, x_c, u_c))
+        s_c, out = one(s_c, x_c, u_c)
+        tf.append(out)
+        x_c, u_c = s_c.last_X[1], out[2]
+    tf_pert = []
+    for s in range(moved):
+        rng = np.random.default_rng(1 + s)
+
+        def move(a):
+            a = np.asarray(a)
+            return jnp.asarray((a * (1 + 2e-7 * rng.standard_normal(a.shape))).astype(np.float32))
+        tf_pert.append([one(s_c._replace(last_X=move(s_c.last_X)), move(x_c), u_c)[1]
+                        for s_c, x_c, u_c in starts])
+    for k in st._fields:
+        arrays[f"tf_state_{k}"] = np.stack([np.asarray(getattr(c[0], k)) for c in starts])
+    arrays["tf_x0"] = np.stack([np.asarray(c[1]) for c in starts])
+    arrays["tf_u0"] = np.stack([np.asarray(c[2]) for c in starts])
+    for i, k in enumerate(keys):
+        arrays[f"tf_{k}"] = np.stack([np.asarray(o[i]) for o in tf])
+        arrays[f"tf_{k}_pert"] = np.stack([[np.asarray(o[i]) for o in r] for r in tf_pert])
+    arrays.update(x0=np.asarray(x0), u0=np.asarray(u0), ss_x=np.asarray(ss_x),
+                  ss_j=np.asarray(ss_j), speed_limit=np.asarray(lim),
+                  speed_scale=np.asarray(sc), scale_u=np.asarray(ctrl.mpc.scale_u))
+    for i, k in enumerate(keys):
+        arrays[k] = np.asarray(runs[0][i])
+        arrays[f"{k}_pert"] = np.stack([np.asarray(r[i]) for r in runs[1:]])
+    return arrays
+
+
 def main() -> None:
     FIXTURE_DIR.mkdir(parents=True, exist_ok=True)
     for case in sys.argv[1:] or [*CASES, *CTRL_CASES, *ADMM_CASES, *CONT_CASES, "stack",
-                                 *NL_CASES, *MODEL_CTRL_FIXTURES, *BUS_CASES, ENTRY_CASE]:
+                                 *NL_CASES, *MODEL_CTRL_FIXTURES, *BUS_CASES, ENTRY_CASE,
+                                 *BENCH_CHAIN_CASES, *BENCH_RT_CASES]:
         path = fixture_path(case)
-        if case == ENTRY_CASE:
+        if case in BENCH_CHAIN_CASES:
+            arrays = compute_bench_chain(case)
+        elif case in BENCH_RT_CASES:
+            arrays = compute_bench_rt(case)
+        elif case == ENTRY_CASE:
             arrays = compute_entry()
         elif case in BUS_CASES:
             arrays = compute_bus(case)
