@@ -57,8 +57,8 @@
    braking scenario (``solve_sqp``, N=10), each within its test's gates and
    breaking them without the rows; the double-track braking scenario as a
    batch of 256 drawn lanes (N=20) held to the reference's spread over its
-   9 stored runs; the kinematic (N=10, the first 20 of the test's 60
-   cycles) and double-track (N=25, the first 10 of the test's 150 cycles)
+   9 stored runs; the kinematic (N=10, the first 12 of the test's 60
+   cycles) and double-track (N=25, the first 7 of the test's 150 cycles)
    closed loops of tests/test_closed_loop.py within the test's gates, each
    with 5 teacher-forced replays held to the reference's spread.
 
@@ -90,10 +90,20 @@
    solved, the objective and the controls within the port's floors or the
    reference's spread over its moved runs.
 
-The teacher-forced replays of every controller path, the accuracy phase
-and the bench's chains from the reference's starts run after all the timed
-phases, side by side in processes of their own on the same card
-(``settle_replays``), and are held to their gates then.
+10. The tools (``racing_lmpc_torch/tools``): ``ground_accuracy``'s engine
+   step on the 11 pinned instances at 3 zoom rounds, each instance alone
+   and with its 8 moved copies (the accuracy gates' reading of
+   ``tools.accuracy``, which the accuracy phase shares); one ``pareto``
+   point from those records at one repetition and a 2-solve chain;
+   ``multihost_report``'s NCCL rank at world size 1; 10 cycles of
+   ``record_putnam_ss`` into a temporary directory, its recorder rows held
+   to the reference's spread over its stored runs
+   (``tests/data/torch_port/tools_putnam_ss.npz``).
+
+The teacher-forced replays of every controller path, the accuracy and
+tools phases and the bench's chains from the reference's starts run after
+all the timed phases, side by side in processes of their own on the same
+card (``settle_replays``), and are held to their gates then.
 
 Every path is driven with every launch counter set to 0 just before and
 read just after.  Prints one ``{"kernels": [...]}`` line, and as its last
@@ -109,6 +119,12 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+# the pinned accuracy instances (tests/data/acc_instances) with their gates
+# (ACCURACY.json), each solved as ACC_REPLICAS copies: the instance and
+# copies moved by one f32 rounding
+from racing_lmpc_torch.tools.accuracy import (
+    ACC_REPLICAS, acc_instances, acc_limits, acc_reading)
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE_DIR = ROOT / "tests" / "data" / "torch_port"
@@ -153,11 +169,6 @@ LQR_TOL = 1e-4           # relative to max(1, |reference|)
 # the twin of __graft_entry__.entry(): its stored reference runs, as
 # tests/torch_port_fixture.py wrote them (compute_entry)
 ENTRY_CASE = "entry_barc_n20_k48"
-# the pinned accuracy instances (tests/data/acc_instances) with their gates
-# (ACCURACY.json), each solved as this many copies: the instance and copies
-# moved by one f32 rounding (tests/_torch_twin.py::replay_instance)
-ACC_DIR = ROOT / "tests" / "data" / "acc_instances"
-ACC_REPLICAS = 9
 # the bench's smallest settings (racing_lmpc_torch/bench.py::run)
 BENCH_SMOKE = {"reps": 1, "chain": 2, "sweep": (512,)}
 # the launch scenarios whose controller chain (bench.rt_chain) is replayed
@@ -874,12 +885,14 @@ def ctrl_fixture(case: str) -> dict:
 def replay_job(case: str, r: int) -> dict:
     """Teacher-forced replay ``r`` of controller fixture ``case`` on the card,
     in a process of its own (``settle_replays``); or, for ``case``
-    "accuracy", the accuracy phase."""
+    "accuracy" or "tools", that phase."""
     import torch
     import racing_lmpc_torch  # noqa: F401  (sets the numerics policy)
     device = torch.device("cuda", 0)
     if case == "accuracy":
         return accuracy_phase(device)
+    if case == "tools":
+        return tools_phase(device)
     if case.startswith("bench_rt_"):
         return bench_rt_replay(case[len("bench_rt_"):], r, device)
     fx = ctrl_fixture(case)
@@ -891,11 +904,12 @@ def replay_job(case: str, r: int) -> dict:
 
 def settle_replays(pending: list[tuple]) -> None:
     """Every controller path's teacher-forced replays, and the accuracy
-    phase, after the timed phases: ``pending`` holds (case, jobs, check) per
-    path.  The jobs run side by side in ``REPLAY_WORKERS`` processes of
-    their own on the same card (a batch-1 cycle leaves the card idle ~90%
-    of the time, so they overlap on the host; the replays' launches are not
-    counted, the accuracy phase counts its own), the longest paths first;
+    and tools phases, after the timed phases: ``pending`` holds (case, jobs,
+    check) per path.  The jobs run side by side in ``REPLAY_WORKERS``
+    processes of their own on the same card (a batch-1 cycle leaves the
+    card idle ~90% of the time, so they overlap on the host; the replays'
+    launches are not counted, the accuracy and tools phases count their
+    own), the longest paths first;
     then each path's ``check`` holds its results to the reference.  Every
     process has ended when this returns."""
     import multiprocessing
@@ -956,121 +970,6 @@ def drive_entry(device) -> dict:
     ms = cuda_time_ms(lambda: fn(*args), reps=5, warmup=1)
     print(f"path entry: {ms:.1f} ms a solve", flush=True)
     return launches
-
-
-def acc_instances() -> list[tuple[dict, dict, dict]]:
-    """(manifest record, arrays, ACCURACY.json gates) of every pinned
-    instance."""
-    man = json.loads((ACC_DIR / "manifest.json").read_text())
-    gates = json.loads((ROOT / "ACCURACY.json").read_text())["per_instance"]
-    out = []
-    for rec in man["instances"]:
-        with np.load(ACC_DIR / rec["file"], allow_pickle=False) as z:
-            out.append((rec, {k: z[k] for k in z.files}, gates[rec["tag"]]))
-    return out
-
-
-def acc_fields(d) -> dict:
-    return {k[4:]: v for k, v in d.items() if k.startswith("inp_")}
-
-
-def acc_copies(d, replicas: int = ACC_REPLICAS) -> dict:
-    """The instance's inputs as a batch of ``replicas`` copies: the first
-    exact, the others with x_ic and X_ref scaled by 1 + 2e-7 N(0, 1) from
-    numpy seed 0 (tests/_torch_twin.py::replay_instance)."""
-    rng = np.random.default_rng(0)
-    batch = {k: np.repeat(np.asarray(v)[None], replicas, 0) for k, v in acc_fields(d).items()}
-    for k in ("x_ic", "X_ref"):
-        noise = 1 + 2e-7 * rng.standard_normal(batch[k].shape)
-        noise[0] = 1.0
-        batch[k] = (batch[k] * noise).astype(np.float32)
-    return batch
-
-
-def acc_primal(qp, out, ss_x):
-    """Each copy's full primal packed into the reference QP's scaled
-    variables (tests/test_reference_match.py::_sparse_vector): (copies, n)
-    float64 on the QP's device."""
-    import torch
-    L = qp.layout
-    f64 = lambda t: t.to(qp.P.device, torch.float64)  # noqa: E731
-    X = f64(out.X_optm)
-    R = X.shape[0]
-    Z = torch.zeros((R, L.n), dtype=torch.float64, device=qp.P.device)
-    Z[:, :L.u_off] = (X / qp.scale_x).reshape(R, -1)
-    Z[:, L.u_off:L.du_off] = (f64(out.U_optm) / qp.scale_u).reshape(R, -1)
-    Z[:, L.du_off:L.du_off + (L.N - 1) * L.nu] = (f64(out.dU_optm) / qp.scale_u).reshape(R, -1)
-    if L.has_bslack:
-        Z[:, L.sb_off] = f64(out.boundary_slack).clamp(min=0.0)
-    if L.learning:
-        lam = f64(out.convex_combi)
-        Z[:, L.lam_off:L.lam_off + L.K] = lam
-        if L.has_hull_slack:
-            Z[:, L.hs_off:L.hs_off + L.nx] = X[:, -1] - lam @ f64(ss_x)
-    return Z
-
-
-def acc_reading(mpc, rec, d, device) -> tuple[dict, object]:
-    """One pinned instance solved by the port as ``ACC_REPLICAS`` copies on
-    ``device``, read as tests/test_reference_match.py::
-    test_engine_matches_certified reads the engine, in the reference QP that
-    the port's oracle builds at f64 on ``device``: the largest longitudinal
-    error, the median over the copies of the applied (stages 0-1) and tail
-    steering errors and of the objective gap, the largest infeasibility,
-    the exact instance's gap (the copy the test reads), the smallest gap,
-    the most any copy lies below the optimum beyond what its infeasibility
-    allows (the dual bound sum_i |y*_i| v_i at the stored certified duals),
-    and the build's drift from the exported QP.  Returns the reading and the
-    QP."""
-    import torch
-    from racing_lmpc_torch.carry import mpc_input_from_arrays
-    from racing_lmpc_torch.mpc.reference_qp import build_reference_qp
-
-    out, _ = mpc.solve_batch(mpc_input_from_arrays(acc_copies(d), device=device))
-    su = d["scale_u"]
-    N, nx, nu = d["inp_X_ref"].shape[0], 6, len(su)
-    U_star = d["z_star"][N * nx:N * nx + (N - 1) * nu].reshape(N - 1, nu) * su
-    rel = np.abs(out.U_optm.double().cpu().numpy() - U_star) / su
-
-    fields = acc_fields(d)
-    inp = mpc_input_from_arrays(fields, device=device)
-    qp = build_reference_qp(mpc.model, mpc.config, inp, device=device)
-    drift, same_inf = 0.0, True
-    for name in ("P", "q", "A", "l", "u"):
-        got, want = getattr(qp, name).cpu().numpy(), d[name]
-        fin = np.isfinite(want)
-        same_inf &= bool(np.array_equal(np.isfinite(got), fin))
-        if np.array_equal(np.isfinite(got), fin):
-            scale = max(1.0, float(np.abs(want[fin]).max()))
-            drift = max(drift, float(np.abs(got[fin] - want[fin]).max()) / scale)
-    Z = acc_primal(qp, out, inp.ss_x)
-    AZ = Z @ qp.A.T
-    rows = torch.maximum((AZ - qp.u).clamp(min=0.0), (qp.l - AZ).clamp(min=0.0))
-    z_star = torch.as_tensor(d["z_star"], device=device)
-    obj = 0.5 * (Z * (Z @ qp.P.T)).sum(1) + Z @ qp.q
-    obj_star = qp.objective(z_star)
-    norm = max(abs(obj_star), 1.0)
-    gaps = ((obj - obj_star) / norm).cpu().numpy()
-    # a point infeasible by v_i on row i can lie below the optimum by at
-    # most sum_i |y*_i| v_i (Lagrangian duality at the certified (z*, y*))
-    bound = (rows * torch.as_tensor(np.abs(d["y_star"]), device=device)).sum(1) / norm
-    reading = {"solved": int(out.solved.sum()), "lon max": float(rel[..., 0].max()),
-               "applied steer": float(np.median(rel[:, :2, 1].max(-1))),
-               "steer tail": float(np.median(rel[..., 1].max(-1))),
-               "infeasibility max": float(rows.amax(1).max()), "gap exact": float(gaps[0]),
-               "gap min": float(gaps.min()),
-               "unexplained beat": float((-torch.as_tensor(gaps, device=device) - bound).max()),
-               "objective gap": float(np.median(gaps)), "drift": drift, "same inf": same_inf}
-    return reading, qp
-
-
-def acc_limits(rec, gates: dict) -> dict:
-    """Each reading's limit: ACCURACY.json's per-instance applied-steer and
-    objective-gap gates, and tests/test_reference_match.py's fixed ones."""
-    return {"lon max": 1e-3, "applied steer": gates["applied_steer_gate"],
-            "steer tail": 2e-2 if rec["learning"] else 1e-2,
-            "infeasibility max": 5e-4, "objective gap": gates["obj_gap_gate"],
-            "drift": 1e-9}
 
 
 def accuracy_phase(device, tags=None) -> dict:
@@ -1171,6 +1070,137 @@ def accuracy_phase(device, tags=None) -> dict:
         failed += [] if scatter > 1e-2 else ["osqp wander"]
     return {"lines": lines, "failed": failed, "launches": launches, "solve_s": solve_s,
             "oracle_ms": oracle_ms, "osqp": osqp}
+
+
+# the tools phase (racing_lmpc_torch/tools): ground_accuracy's engine step
+# on every pinned instance at this override set, one pareto point there at
+# one repetition and a 2-solve chain, the multihost report's NCCL rank at
+# world size 1, and the Putnam seed-lap recorder's first cycles, held to the
+# reference's spread over its stored runs
+# (tests/data/torch_port/tools_putnam_ss.npz)
+TOOLS_GRID = [{"qp_zoom_rounds": 3}]
+TOOLS_PARETO = {"reps": 1, "chain": 2, "chain_reps": 1}
+TOOLS_SS_STEPS = 10
+# the floors of the recorder rows' readings (ss_row_errors): state and
+# previous control relative to max(1, |reference|), curvature and time
+# absolute
+SS_ROW_FLOORS = {"x": 1e-4, "u": 1e-4, "k": 1e-6, "t": 1e-9}
+
+
+def ss_row_errors(rows: dict, ref: dict) -> dict:
+    """The largest difference over the cycles of recorder rows ``rows`` from
+    a run ``ref`` of the same length, by row part, as ``SS_ROW_FLOORS``
+    reads them."""
+    return {k: float(np.abs(np.asarray(rows[k], np.float64) - ref[k]).max()
+                     / (max(1.0, float(np.abs(ref[k]).max())) if k in "xu" else 1.0))
+            for k in SS_ROW_FLOORS}
+
+
+def ss_runs(fx) -> list[dict]:
+    """The stored reference runs of the recorder's loop (the run itself
+    first, then its moved re-runs)."""
+    return [{k: fx[k][r] for k in ("x", "u", "k", "t", "solved")} for r in range(len(fx["t"]))]
+
+
+def ss_row_limits(fx) -> dict:
+    """Each row part's limit: the reference's worst reading between two of
+    its runs, or ``SS_ROW_FLOORS`` where that is wider; and the most
+    fallbacks of a reference run."""
+    runs = ss_runs(fx)
+    worst = [ss_row_errors(a, b) for i, a in enumerate(runs) for j, b in enumerate(runs) if i != j]
+    return {**{k: max(f, *(w[k] for w in worst)) for k, f in SS_ROW_FLOORS.items()},
+            "fallbacks": max(int((~r["solved"]).sum()) for r in runs)}
+
+
+def ss_held(rows: dict, fallbacks: int, fx) -> tuple[dict, dict, bool]:
+    """The recorder's rows and fallbacks against the reference's first run,
+    within ``ss_row_limits``: (reading, limits, held)."""
+    ref = ss_runs(fx)[0]
+    n = len(ref["t"])
+    reading = {**ss_row_errors({k: v[:n] for k, v in rows.items()}, ref), "fallbacks": fallbacks}
+    limits = ss_row_limits(fx)
+    return reading, limits, all(reading[k] <= limits[k] for k in limits)
+
+
+def tools_phase(device) -> dict:
+    """The tools on ``device`` with every launch count set to 0 just before
+    and read just after (the NCCL rank's own count added): the engine
+    records of ``TOOLS_GRID`` on the 11 pinned instances, each finite with
+    the reference QP's build within 1e-9 of the export; a pareto point from
+    those records with ``PARETO.json``'s keys, finite positive throughput,
+    ``chol_tri_inv`` launched by both measurements and ``gate_failures`` by
+    the reference tool's rule; ``TOOLS_SS_STEPS`` cycles of the Putnam
+    recorder into a temporary directory, its rows and fallbacks within the
+    reference's spread over its stored runs (``ss_held``); the NCCL rank's
+    ``scaling_bench`` at the flagship batch.  Returns the lines, the failed
+    checks, the launches and each tool's seconds."""
+    import tempfile
+    import torch
+    from racing_lmpc_torch.tools import ground_accuracy, multihost_report, pareto
+    from racing_lmpc_torch.tools import record_putnam_ss
+    from racing_lmpc_torch.tools.accuracy import ACC_DIR
+
+    lines, failed, seconds = [], [], {}
+    reference = json.loads((ROOT / "PARETO.json").read_text())["points"][0]
+    gates = json.loads((ROOT / "ACCURACY.json").read_text())["per_instance"]
+    zero_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        tmp = Path(tmp)
+        t = time.perf_counter()
+        runs = ground_accuracy.run_engine(ACC_DIR, tmp, device, TOOLS_GRID)
+        seconds["engine"] = time.perf_counter() - t
+        (key, recs), = runs.items()
+        nums = [v for r in recs.values() for k, v in r.items() if k not in ("solved", "same_inf")]
+        ok = (len(recs) == 11 and bool(np.isfinite(nums).all())
+              and all(r["drift"] < 1e-9 and r["same_inf"] for r in recs.values()))
+        failed += [] if ok else ["engine records"]
+        lines.append(f"tools ground_accuracy --engine {key}: {len(recs)} instances in "
+                     f"{seconds['engine']:.1f} s; worst applied steer "
+                     f"{max(r['applied_steer_err'] for r in recs.values()):.3e}, worst "
+                     f"objective gap {max(r['objective_gap'] for r in recs.values()):.3e}, "
+                     f"unsolved {[t for t, r in recs.items() if not r['solved']]} "
+                     f"{'ok' if ok else 'FAILS'}")
+        t = time.perf_counter()
+        doc = pareto.run(device, TOOLS_GRID, tmp / "PARETO_torch.json", runs, **TOOLS_PARETO)
+        seconds["pareto"] = time.perf_counter() - t
+        p, = doc["points"]
+        rule = [tag for tag, r in recs.items()
+                if r["applied_steer_err"] >= gates[tag]["applied_steer_gate"]]
+        ok = (set(reference) <= set(p) and p["gate_failures"] == rule
+              and np.isfinite(p["solves_per_s_batch256_N20"]) and p["solves_per_s_batch256_N20"] > 0
+              and p["batch1_chain_ms"] > 0 and p["chol_tri_inv_per_solve_batch"] > 0
+              and p["chol_tri_inv_per_solve_chain"] > 0
+              and doc["device"] == torch.cuda.get_device_name(device))
+        failed += [] if ok else ["pareto point"]
+        lines.append(f"tools pareto {key} ({seconds['pareto']:.1f} s, {doc['device']} at "
+                     f"{doc['power_limit_w']} W): {json.dumps(p)} {'ok' if ok else 'FAILS'}")
+        t = time.perf_counter()
+        ss = record_putnam_ss.record(tmp / "ss", max_steps=TOOLS_SS_STEPS, device=device,
+                                     log_every=0)
+        seconds["record_putnam_ss"] = time.perf_counter() - t
+        reading, limits, held = ss_held(ss["rows"], round(ss["fallback"] * ss["steps"]),
+                                        load_fixture("tools_putnam_ss"))
+        ok = ss["steps"] == TOOLS_SS_STEPS and held
+        failed += [] if ok else ["record_putnam_ss rows"]
+        lines.append(f"tools record_putnam_ss: {ss['steps']} cycles in "
+                     f"{seconds['record_putnam_ss']:.1f} s; rows and fallbacks from the "
+                     f"reference's run {reading} (limits, the reference's spread over its runs: "
+                     f"{limits}) {'ok' if ok else 'FAILS'}")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = read_launches()
+    t = time.perf_counter()
+    nccl = multihost_report.report(device, cpu_ranks=(), reps=1)["nccl_world_size_1"]
+    seconds["multihost_report"] = time.perf_counter() - t
+    launches["chol_tri_inv"] += nccl["chol_tri_inv_launches"]
+    bench, = nccl["scaling_bench"]
+    ok = (nccl["backend"] == "nccl" and nccl["world_size"] == 1
+          and bench["solved_fraction"] > 0.9 and nccl["chol_tri_inv_launches"] > 0
+          and np.isfinite(nccl["metrics_allreduce_ms"]))
+    failed += [] if ok else ["multihost_report NCCL"]
+    lines.append(f"tools multihost_report (NCCL world size 1, {seconds['multihost_report']:.1f} "
+                 f"s): {json.dumps(nccl)} {'ok' if ok else 'FAILS'}")
+    return {"lines": lines, "failed": failed, "launches": launches, "seconds": seconds}
 
 
 REG_KEYS = ("dA", "dB", "dC")
@@ -1598,8 +1628,8 @@ MODEL_CTRL_CASES = {
 }
 # the cycles the card drives, prefixes of the stored runs cut to fit the
 # script's time (the double-track's host time a cycle is ~3x the
-# kinematic's; both cut further when the bench phase came in)
-MODEL_CTRL_DEPTH = {"ctrl_kinematic": 20, "ctrl_double_track": 10}
+# kinematic's; both cut further when the bench and the tools phases came in)
+MODEL_CTRL_DEPTH = {"ctrl_kinematic": 12, "ctrl_double_track": 7}
 MODEL_CTRL_REPLAYS = 5
 # the JAX tests' closed-loop gates: fallbacks, max |lateral offset|, final speed
 MODEL_CTRL_GATES = {"fallbacks": 5, "lat": 0.2, "speed": 1.0}
@@ -2535,6 +2565,16 @@ def main() -> int:
         check(not res["failed"], f"accuracy: {res['failed']}")
         check(res["launches"]["chol_tri_inv"] > 0 and res["launches"]["gj_inverse"] == 0,
               f"accuracy: launches {res['launches']}")
+    def settle_tools(results: list[dict]) -> None:
+        res = results[0]
+        for line in res["lines"]:
+            print(line, flush=True)
+        print(f"tools: launches {res['launches']}, seconds {res['seconds']}", flush=True)
+        per_path["tools"] = res["launches"]
+        check(not res["failed"], f"tools: {res['failed']}")
+        check(res["launches"]["chol_tri_inv"] > 0 and res["launches"]["gj_inverse"] == 0,
+              f"tools: launches {res['launches']}")
+    pending.insert(0, ("tools", 1, settle_tools))
     pending.insert(0, ("accuracy", 1, settle_accuracy))
     pending += bench_rt_replays()
     settle_replays(pending)

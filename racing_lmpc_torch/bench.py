@@ -11,11 +11,10 @@ and the lanes that did not solve.
 - Headline: ``solve_batch`` of ``make_scenario_batch(batch=256)`` with a
   zero warm start (``bench.py:114-146``).  Every repetition ends in
   ``torch.cuda.synchronize()``; ``bench.py`` synchronized only after its
-  last one, and the two methods differed by 28% on the TPU
-  (``VERDICT.md:168-174``).  One loop of repetitions gives both the
-  throughput and the batch latencies (with a synchronize after each, the
-  reference's two loops measure the same thing); ``*_p99`` is the
-  slowest repetition, as in ``bench.py``.
+  last one (``VERDICT.md:168-174`` compares the two methods).  One loop
+  of repetitions gives both the throughput and the batch latencies (with
+  a synchronize after each, the reference's two loops measure the same
+  thing); ``*_p99`` is the slowest repetition, as in ``bench.py``.
 - ``batch1_onchip_ms`` / ``batch8_onchip_ms_per_solve``: ``chain_solves``,
   dependent receding-horizon solves (``bench.py:152-175``).
 - ``batch_sweep_solves_per_s`` (``:177-188``) and the shipped N=40/K=96

@@ -167,21 +167,22 @@ def replay_instance(rec, d, replicas: int, gates: dict):
     rounding moves the JAX package's own applied-steer error on barc_lmpc[6]
     between 3e-5 and 2e-2 (measured).  So the instance is solved as a batch
     of ``replicas`` copies, the first exact and the rest with x_ic and X_ref
-    perturbed by ~2e-7 relative (``chip_smoke.acc_copies``); every copy must
-    converge, meet the longitudinal and feasibility gates, and the MEDIAN
-    over the copies must meet the steering and objective-gap gates.  The vehicle and the config
-    are the instance's scenario's (``scenario_mpcs``); the reference QP is
+    perturbed by ~2e-7 relative (``racing_lmpc_torch.tools.accuracy.
+    acc_copies``); every copy must converge, meet the longitudinal and
+    feasibility gates, and the MEDIAN over the copies must meet the steering
+    and objective-gap gates.  The vehicle and the config are the instance's
+    scenario's (``scenario_mpcs``); the reference QP is
     the JAX package's build.
     """
-    import chip_smoke
     from racing_lmpc_tpu.mpc.racing_mpc import MPCInput as JInput
     from racing_lmpc_tpu.mpc.reference_qp import build_reference_qp
     from racing_lmpc_torch.carry import mpc_input_from_arrays
+    from racing_lmpc_torch.tools.accuracy import acc_copies, acc_fields
 
     jmpc, mpc = scenario_mpcs(rec["scenario"], rec["n_override"])
 
-    fields = chip_smoke.acc_fields(d)
-    out, _ = mpc.solve_batch(mpc_input_from_arrays(chip_smoke.acc_copies(d, replicas),
+    fields = acc_fields(d)
+    out, _ = mpc.solve_batch(mpc_input_from_arrays(acc_copies(d, replicas),
                                                    device="cpu"))
     tag = rec["tag"]
     assert np_of(out.solved).all(), f"{tag}: not every copy converged"

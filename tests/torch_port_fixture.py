@@ -34,7 +34,12 @@ holds the reference's ``__graft_entry__.entry()`` solve (see
 ``compute_entry``); ``BENCH_CHAIN_CASES`` and ``BENCH_RT_CASES`` hold
 bench.py's dependent chains of solves and of controller cycles, which the
 port's bench (``racing_lmpc_torch/bench.py``) is held to (see
-``compute_bench_chain`` and ``compute_bench_rt``).
+``compute_bench_chain`` and ``compute_bench_rt``); ``TOOLS_ENGINE_CASE``,
+``TOOLS_SS_CASE`` and ``TOOLS_CAPTURE_CASE`` hold what the port's tools
+(``racing_lmpc_torch/tools``) are held to: the reference tool's engine
+records, the seed-lap recorder's first cycles, and the spread of
+scripts/ground_accuracy.py's captures (see ``compute_tools_engine``,
+``compute_tools_putnam_ss`` and ``compute_tools_capture``).
 
 Run from the repository root:
 
@@ -1020,13 +1025,192 @@ def compute_bench_rt(case: str) -> dict:
     return arrays
 
 
+# the tools' fixtures: the reference's engine records (one instance of each
+# acceptance scenario at the shipped config and at 2 zoom rounds, each as
+# the instance and the copies moved by one f32 rounding that
+# racing_lmpc_torch/tools/accuracy.py::acc_copies makes), and the first
+# cycles of the Putnam seed-lap recorder's loop
+TOOLS_ENGINE_CASE = "tools_engine_runs"
+TOOLS_ENGINE_TAGS = ("barc_tracking_mpc[6]", "barc_lmpc[6]", "putnam_short_tracking_mpc[8]")
+TOOLS_ENGINE_GRID = ({}, {"qp_zoom_rounds": 2})
+TOOLS_ENGINE_FIELDS = ("applied_steer_err", "steer_tail_err", "lon_err", "solved",
+                       "objective_gap")
+TOOLS_SS_CASE = "tools_putnam_ss"
+TOOLS_SS_STEPS = 10
+# the moved re-runs of the tools' closed-loop fixtures
+TOOLS_MOVED_RUNS = 4
+
+
+def compute_tools_engine() -> dict:
+    """The reference tool's engine record (scripts/ground_accuracy.py:
+    227-271: ``RacingMPC._solve_jit`` of the instance from its stored warm
+    start, through ``CoSimulation(_SCENARIOS[scenario], n_override,
+    mpc_overrides)``) of each of ``TOOLS_ENGINE_TAGS`` at each override set
+    of ``TOOLS_ENGINE_GRID``, for the exact instance and its moved copies
+    (``acc_copies``), with the objective gap of each in the reference QP
+    (tests/test_reference_match.py::_sparse_vector).  Stored as
+    ``<field>`` arrays (tags, grid points, copies)."""
+    _jax_on_cpu()
+    import json
+    import jax.numpy as jnp
+    from racing_lmpc_tpu.launch.runner import _SCENARIOS, CoSimulation
+    from racing_lmpc_tpu.mpc.racing_mpc import MPCInput
+    from racing_lmpc_tpu.mpc.reference_qp import build_reference_qp
+    from racing_lmpc_torch.tools.accuracy import (
+        ACC_REPLICAS, acc_copies, controls, load_instances)
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_reference_match import _sparse_vector
+
+    insts = {rec["tag"]: (rec, d) for rec, d in load_instances()[1]}
+    out = {f: np.zeros((len(TOOLS_ENGINE_TAGS), len(TOOLS_ENGINE_GRID), ACC_REPLICAS))
+           for f in TOOLS_ENGINE_FIELDS}
+    for j, overrides in enumerate(TOOLS_ENGINE_GRID):
+        for i, tag in enumerate(TOOLS_ENGINE_TAGS):
+            rec, d = insts[tag]
+            mpc = CoSimulation(_SCENARIOS[rec["scenario"]], n_override=rec["n_override"],
+                               mpc_overrides=dict(overrides)).controller.mpc
+            copies = acc_copies(d)
+            su = d["scale_u"]
+            for r in range(ACC_REPLICAS):
+                fields = {k: jnp.asarray(v[r]) for k, v in copies.items()}
+                inp = MPCInput(**fields, dA=None, dB=None, dC=None)
+                o, _ = mpc._solve_jit(inp, jnp.asarray(d["zw"]), jnp.asarray(True))
+                rel = np.abs(np.asarray(o.U_optm, np.float64) - controls(d)) / su
+                np_inp = MPCInput(**{k: np.asarray(v) for k, v in fields.items()})
+                qp = build_reference_qp(mpc.model, mpc.config, np_inp)
+                z = _sparse_vector(qp, o, np_inp)
+                gap = (qp.objective(z) - qp.objective(d["z_star"])) / max(
+                    abs(qp.objective(d["z_star"])), 1.0)
+                for f, v in zip(TOOLS_ENGINE_FIELDS, (
+                        rel[:2, 1].max(), rel[:, 1].max(), rel[:, 0].max(),
+                        bool(o.solved), gap)):
+                    out[f][i, j, r] = v
+            print(f"{json.dumps(overrides)} {tag}: applied "
+                  f"{out['applied_steer_err'][i, j].tolist()}", flush=True)
+    return {**out, "tags": np.asarray(TOOLS_ENGINE_TAGS),
+            "grid": np.asarray([json.dumps(g, sort_keys=True) for g in TOOLS_ENGINE_GRID])}
+
+
+def compute_tools_putnam_ss() -> dict:
+    """The first ``TOOLS_SS_STEPS`` cycles of scripts/record_putnam_ss.py's
+    loop (its spec at the default scale 0.55), the run itself and re-runs in
+    which every state the controller receives is moved by one f32 rounding
+    (``_mover`` seeds 1 to ``TOOLS_MOVED_RUNS``): each cycle's recorder row
+    (state, previous control, curvature, time; from the unmoved state) and
+    the cycle's solved flag, stacked (runs, cycles, ...)."""
+    _jax_on_cpu()
+    from racing_lmpc_tpu.launch.runner import _SCENARIOS, CoSimulation, ScenarioSpec
+
+    trk, lmpc = _SCENARIOS["putnam_short_tracking_mpc"], _SCENARIOS["putnam_short_lmpc"]
+    runs = []
+    for seed in (None, *range(1, TOOLS_MOVED_RUNS + 1)):
+        cs = CoSimulation(ScenarioSpec(**{
+            **trk.__dict__, "name": "putnam_short_ss_recording",
+            "x0_global": lmpc.x0_global, "dt": lmpc.dt, "velocity_profile_scale": 0.55}))
+        if seed is not None:
+            cs.state_filter = _mover(seed)
+        rows = {"x": [], "u": [], "k": [], "t": []}
+        for _ in range(TOOLS_SS_STEPS):
+            msg = cs.vehicle_state_msg()
+            x = np.array([msg.p.s, msg.p.x_tran, msg.p.e_psi,
+                          msg.v.v_long, msg.v.v_tran, msg.w.w_psi])
+            u_prev = np.asarray(cs._u_prev, dtype=np.float64)
+            for key, v in zip(rows, (x, u_prev, float(cs.track.curvature_np(x[0])), cs._t)):
+                rows[key].append(v)
+            cs.plant_cycle(cs.controller_cycle(msg))
+        runs.append({**rows, "solved": [t.solved for t in cs.telemetry]})
+        print(f"putnam recorder run {seed}: solved {runs[-1]['solved']}", flush=True)
+    return {k: np.asarray([r[k] for r in runs]) for k in runs[0]}
+
+
+TOOLS_CAPTURE_CASE = "tools_capture_spread"
+# scripts/ground_accuracy.py's first capture point of each scenario
+TOOLS_CAPTURE_POINTS = (("barc_tracking_mpc", 20, 6, True), ("barc_lmpc", 20, 6, False),
+                        ("putnam_short_tracking_mpc", 30, 8, False))
+
+
+def compute_tools_capture() -> dict:
+    """The reference's own spread at scripts/ground_accuracy.py's first
+    capture point of each scenario (``TOOLS_CAPTURE_POINTS``; the tracking
+    point with its deviated copy): the capture made in the run itself and in
+    re-runs in which every state the controller receives is moved by one f32
+    rounding (``_mover`` seeds 1 to ``TOOLS_MOVED_RUNS``), as
+    scripts/ground_accuracy.py:95-119 captures it.  Stored per tag: the
+    largest difference between two of the runs of P, q, A, l and u
+    (relative to the larger's max(1, max |entry|), finite entries) and of
+    the certified optimum's controls (over ``scale_u``), and the run itself's
+    difference from the pinned instance."""
+    _jax_on_cpu()
+    import jax
+    import jax.numpy as jnp
+    from racing_lmpc_tpu.launch.runner import _SCENARIOS, CoSimulation
+    from racing_lmpc_tpu.mpc.reference_qp import build_reference_qp, solve_dense_qp_f64
+    from racing_lmpc_torch.tools.accuracy import controls, load_instances
+
+    def rel(a, b):
+        fin = np.isfinite(b)
+        return float(np.abs(a[fin] - b[fin]).max() / max(1.0, np.abs(b[fin]).max()))
+
+    pinned = {rec["tag"]: d for rec, d in load_instances()[1]}
+    tags, spread, drift = [], [], []
+    for name, n, at, deviate in TOOLS_CAPTURE_POINTS:
+        caps = {}
+        for seed in (None, *range(1, TOOLS_MOVED_RUNS + 1)):
+            cs = CoSimulation(_SCENARIOS[name], n_override=n)
+            if seed is not None:
+                cs.state_filter = _mover(seed)
+            ctrl, mpc = cs.controller, cs.controller.mpc
+            for _ in range(at):
+                cs.step()
+            msg = cs.vehicle_state_msg()
+            x = jnp.asarray([msg.p.s, msg.p.x_tran, msg.p.e_psi,
+                             msg.v.v_long, msg.v.v_tran, msg.w.w_psi], dtype=jnp.float32)
+            ss_x, ss_j = ctrl._query_safe_set(ctrl.state.last_X[-1])
+            inp, _, _ = ctrl.build_step_input(
+                x, cs._u_prev, ctrl.state, ss_x, ss_j,
+                jnp.asarray(ctrl.speed_limit, jnp.float32),
+                jnp.asarray(ctrl.speed_scale, jnp.float32))
+            inp = jax.tree.map(np.asarray, inp)
+            variants = [(f"{name}[{at}]", inp)]
+            if deviate:
+                x2 = np.array(inp.x_ic)
+                x2[1] += 0.18
+                variants.append((f"{name}_dev[{at}]", inp._replace(x_ic=x2)))
+            for tag, v in variants:
+                qp = build_reference_qp(mpc.model, mpc.config, v)
+                z, _ = solve_dense_qp_f64(qp)
+                d = {k: getattr(qp, k) for k in "PqAlu"}
+                d.update(z_star=z, scale_u=np.asarray(mpc.scale_u), inp_X_ref=v.X_ref)
+                caps.setdefault(tag, []).append(d)
+            print(f"capture {name} run {seed}", flush=True)
+        for tag, runs in caps.items():
+            su = runs[0]["scale_u"]
+
+            def reading(a, b):
+                return [rel(a[k], b[k]) for k in "PqAlu"] + [float(
+                    (np.abs(controls(a) - controls(b)) / su).max())]
+            tags.append(tag)
+            spread.append(np.max([reading(a, b) for i, a in enumerate(runs)
+                                  for j, b in enumerate(runs) if i != j], axis=0))
+            drift.append(reading(runs[0], pinned[tag]))
+    return {"tags": np.asarray(tags), "spread": np.asarray(spread),
+            "drift_from_pinned": np.asarray(drift), "parts": np.asarray([*"PqAlu", "U"])}
+
+
 def main() -> None:
     FIXTURE_DIR.mkdir(parents=True, exist_ok=True)
     for case in sys.argv[1:] or [*CASES, *CTRL_CASES, *ADMM_CASES, *CONT_CASES, "stack",
                                  *NL_CASES, *MODEL_CTRL_FIXTURES, *BUS_CASES, ENTRY_CASE,
-                                 *BENCH_CHAIN_CASES, *BENCH_RT_CASES]:
+                                 *BENCH_CHAIN_CASES, *BENCH_RT_CASES, TOOLS_ENGINE_CASE,
+                                 TOOLS_SS_CASE, TOOLS_CAPTURE_CASE]:
         path = fixture_path(case)
-        if case in BENCH_CHAIN_CASES:
+        if case == TOOLS_ENGINE_CASE:
+            arrays = compute_tools_engine()
+        elif case == TOOLS_SS_CASE:
+            arrays = compute_tools_putnam_ss()
+        elif case == TOOLS_CAPTURE_CASE:
+            arrays = compute_tools_capture()
+        elif case in BENCH_CHAIN_CASES:
             arrays = compute_bench_chain(case)
         elif case in BENCH_RT_CASES:
             arrays = compute_bench_rt(case)
