@@ -10,8 +10,9 @@
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
    at the paths' shapes and at the other shipped sizes; ``chol_tri_inv``
    also bit for bit against its step mirror ``chol_tri_inv_sweep``, on a
-   wide-spectrum case and a batch with one indefinite lane (NaN there
-   only), and its raise above n=240; ``gj_inverse`` on a pivoting case,
+   wide-spectrum case, the wide variant's sizes (n = 241 to 1024), a batch
+   with one indefinite lane at n = 87 and at n = 275 (NaN there only), and
+   its raise above n = 1024; ``gj_inverse`` on a pivoting case,
    exact |pivot| ties, the edges of its size classes (b = 1 to 64) and a
    singular lane in each class: the same pivots, the same non-finite
    entries and the same bits on the finite ones as the plain version, and
@@ -60,7 +61,14 @@
    9 stored runs; the kinematic (N=10, the first 12 of the test's 60
    cycles) and double-track (N=25, the first 7 of the test's 150 cycles)
    closed loops of tests/test_closed_loop.py within the test's gates, each
-   with 5 teacher-forced replays held to the reference's spread.
+   with 5 teacher-forced replays held to the reference's spread.  The
+   double-track LMPC at the shipped learning horizons (``dt_lmpc``): the
+   sample vehicle on Putnam-short with the recorded seed laps, iac_car_lmpc
+   with the launch's elastic state boxes (N=60, K=96, n = 275, 32 lanes
+   through ``solve_batch``) and the upstream sample_mpc (N=50, n = 244, one
+   scenario through ``_solve_impl``), its QPs past the kernel's register
+   variants, held as the double-track batch is
+   (``tests/data/torch_port/dt_lmpc_*.npz``).
 
 7. The entry point: ``racing_lmpc_torch.entry.entry()`` (the twin of
    ``__graft_entry__.entry``), its ``fn`` on its example arguments: finite
@@ -106,7 +114,8 @@ all the timed phases, side by side in processes of their own on the same
 card (``settle_replays``), and are held to their gates then.
 
 Every path is driven with every launch counter set to 0 just before and
-read just after.  Prints one ``{"kernels": [...]}`` line, and as its last
+read just after.  Each phase's seconds are printed on a line of its own
+(``phase <name>: ...``).  Prints one ``{"kernels": [...]}`` line, and as its last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero without that last line.  It imports nothing of JAX.
 """
@@ -313,6 +322,16 @@ def kernel_phase(device) -> dict:
     cases.append(("H, bench sweep N=20 K=48", spd_batch(rng, 1024, 87), True))
     cases.append(("H, IAC tracking controller N=80",
                   spd_batch(rng, 1, tracking_qp_size(device)), True))
+    # the wide variant (n > 240): the double-track LMPC's batch (n = 275)
+    # and single solve (n = 275, and the sample config's 244), one pivot
+    # past the register variants, the shared-memory triangle's last size
+    # and the first in device memory, up to the limit
+    cases.append(("H, double-track LMPC batch N=60 K=96", spd_batch(rng, 32, 275), True))
+    cases.append(("H, double-track LMPC single N=60 K=96", spd_batch(rng, 1, 275), True))
+    cases.append(("H, double-track LMPC single N=50 K=96", spd_batch(rng, 1, 244), True))
+    for n in (241, 244, 256, 274, 275, 320, 336, 337, 400, 512):
+        cases.append((f"wide n={n}", spd_batch(rng, 4, n), False))
+    cases.append(("wide n=1024", spd_batch(rng, 1, linalg.chol_max_n()), False))
     main = None
     for name, Hn, timed in cases:
         H = torch.as_tensor(Hn, device=device)
@@ -354,25 +373,27 @@ def kernel_phase(device) -> dict:
         print(line, flush=True)
 
     # one indefinite lane: NaN there (from the bad pivot's row on), every
-    # other lane untouched
-    Hn = spd_batch(rng, 16, 87)
-    Hn[5, 40, 40] = -1.0e4
-    H = torch.as_tensor(Hn, device=device)
-    K = linalg.chol_tri_inv(H)
-    P = linalg.chol_tri_inv_plain(H)
-    S = linalg.chol_tri_inv_sweep(H)
-    torch.cuda.synchronize()
-    bad = ~torch.isfinite(K).flatten(1).all(dim=1)
-    check(bad.tolist() == [i == 5 for i in range(16)],
-          f"indefinite lane: non-finite lanes {bad.nonzero().flatten().tolist()}, want [5]")
-    check(bool(torch.isfinite(K[5, :40]).all()), "indefinite lane: NaN above the bad pivot")
-    check(same_bits(K, S), "indefinite batch: kernel not bit-equal to the sweep mirror")
-    check(bool((torch.triu(K, 1) == 0).all()), "indefinite batch: upper part not zero")
-    keep = torch.arange(16, device=device) != 5
-    err = rel_err(K[keep], P[keep])
-    check(err < 1e-4, f"indefinite batch: other lanes vs plain {err:.2e}")
-    print(f"kernel indefinite lane: NaN in lane 5 only, rows >= 40; others vs plain "
-          f"{err:.3e}; bit-equal to the sweep mirror", flush=True)
+    # other lane untouched; in a register variant and in the wide one
+    for G, n, lane, pivot in ((16, 87, 5, 40), (4, 275, 2, 100)):
+        Hn = spd_batch(rng, G, n)
+        Hn[lane, pivot, pivot] = -1.0e4
+        H = torch.as_tensor(Hn, device=device)
+        K = linalg.chol_tri_inv(H)
+        P = linalg.chol_tri_inv_plain(H)
+        S = linalg.chol_tri_inv_sweep(H)
+        torch.cuda.synchronize()
+        what = f"indefinite lane {lane} of ({G}, {n}, {n})"
+        bad = ~torch.isfinite(K).flatten(1).all(dim=1)
+        check(bad.tolist() == [i == lane for i in range(G)],
+              f"{what}: non-finite lanes {bad.nonzero().flatten().tolist()}")
+        check(bool(torch.isfinite(K[lane, :pivot]).all()), f"{what}: NaN above the bad pivot")
+        check(same_bits(K, S), f"{what}: kernel not bit-equal to the sweep mirror")
+        check(bool((torch.triu(K, 1) == 0).all()), f"{what}: upper part not zero")
+        keep = torch.arange(G, device=device) != lane
+        err = rel_err(K[keep], P[keep])
+        check(err < 1e-4, f"{what}: other lanes vs plain {err:.2e}")
+        print(f"kernel {what}: NaN in that lane only, rows >= {pivot}; others vs plain "
+              f"{err:.3e}; bit-equal to the sweep mirror", flush=True)
     big = linalg.chol_max_n() + 1
     try:
         linalg.chol_tri_inv(torch.zeros(1, big, big, device=device))
@@ -519,11 +540,13 @@ def profile(fn, wall_ms: float, label: str) -> float:
     call (their difference is the device's idle share, returned)."""
     import torch
     from torch.profiler import ProfilerActivity
-    with torch.profiler.profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t = time.perf_counter()
+    # the device's activity only: the readings below are kernel events, and
+    # recording every CPU op too made the profiler's own work take most of
+    # the script's time on the paths of ~10^5 launches
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # kernel events only: a CPU op's self device time repeats its kernels'
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -531,7 +554,8 @@ def profile(fn, wall_ms: float, label: str) -> float:
     launches = sum(r[1] for r in rows)
     idle = 1 - busy / wall_ms
     print(f"profile {label}: {launches} kernel launches, device busy "
-          f"{busy:.1f} ms of {wall_ms:.1f} ms wall (idle share {idle:.3f})", flush=True)
+          f"{busy:.1f} ms of {wall_ms:.1f} ms wall (idle share {idle:.3f}; the profiled "
+          f"call and its reading {time.perf_counter() - t:.1f} s)", flush=True)
     for key, count, t in sorted(rows, key=lambda r: -r[2])[:6]:
         print(f"  {t:8.2f} ms  {count:6d} x  {key[:90]}", flush=True)
     return idle
@@ -1760,6 +1784,132 @@ def nl_qp_sizes() -> dict:
             for case, (nx, N, n_nl) in paths.items()}
 
 
+# ---------------------------------------------------------------------------
+# the double-track LMPC at the shipped learning horizons: the sample
+# vehicle's double-track on Putnam-short with the recorded seed laps, its
+# QP past the kernel's register variants (n > 240)
+# ---------------------------------------------------------------------------
+
+# case -> (param file, horizon N, K, batch, lane seed, config overrides,
+# entry point): iac_car_lmpc with the Putnam launch's elastic state boxes
+# (launch/runner.py's putnam_short_lmpc), n = 275, through solve_batch; the
+# upstream sample_mpc, n = 244, one scenario through _solve_impl as entry()
+# calls it; and a cut of the first (N=10, K=16, 4 lanes) that the CPU tests
+# solve live in both packages
+DT_LMPC_CASES = {
+    "dt_lmpc_iac_n60_b32": ("iac_car_lmpc", 60, 96, 32, 21, {"q_state_slack": 2000.0},
+                            "solve_batch"),
+    "dt_lmpc_sample_n50_b1": ("sample_mpc", 50, 96, 1, 22, {}, "_solve_impl"),
+    "dt_lmpc_iac_n10_b4": ("iac_car_lmpc", 10, 16, 4, 23, {"q_state_slack": 2000.0},
+                           "solve_batch"),
+}
+DT_LMPC_DT = 0.1
+DT_LMPC_TRACK = ("putnam_short", "08_putnam_short_optm.txt")
+DT_LMPC_LAPS = ("putnam_short", 3)
+# the double-track's control weights of nl_problem (steering 0.05, the
+# forces 1e-7 in N^-2), no control box
+DT_LMPC_R = tuple((np.eye(3) * np.array([1e-7, 1e-7, 0.05])).ravel())
+# the param files' state vectors are in the single-track's order (s, ey,
+# epsi, vx, vy, vyaw); the double-track's is (s, ey, epsi, vyaw, slip, v):
+# each entry goes to the state of its name (vy's to the slip angle)
+DT_FROM_SINGLE = (0, 1, 2, 5, 4, 3)
+DT_LMPC_MOVED = 8
+# the cases the card drives against stored reference runs (the N=10 cut is
+# the CPU tests' live comparison)
+DT_LMPC_FIXTURE_CASES = ("dt_lmpc_iac_n60_b32", "dt_lmpc_sample_n50_b1")
+# the double-track batch's floors, but solved lane by lane: a lane may
+# differ only as far as the reference's own runs differ
+DT_LMPC_FLOORS = {**NL_BATCH_FLOORS, "solved differs": 0}
+
+
+def dt_lmpc_overrides(cfg, case: str) -> dict:
+    """The config overrides of ``case`` on the param file's config ``cfg``:
+    the horizon, K, the double-track's weights, no control box, the state
+    vectors in the double-track's order and the case's own."""
+    _, N, K, _, _, extra, _ = DT_LMPC_CASES[case]
+
+    def reorder(v):
+        return tuple(v[i] for i in DT_FROM_SINGLE)
+    return dict(n=N, num_ss_pts=K, r=DT_LMPC_R, r_d=DT_LMPC_R, u_min=(), u_max=(),
+                x_min=reorder(cfg.x_min), x_max=reorder(cfg.x_max),
+                convex_hull_slack=reorder(cfg.convex_hull_slack), **extra)
+
+
+def dt_lmpc_fields(track, manager, case: str, per_lap: int) -> dict:
+    """The lanes of ``case`` as numpy arrays (one per ``MPCInput`` field,
+    leading dimension the batch), in the shape of
+    ``benchmarks.make_scenario_batch`` at Putnam speeds: s0 uniform over
+    the lap, ey0 uniform in +-0.5 m, v0 the raceline's speed at s0 times
+    U(0.9, 1.0) and at least 3.5 m/s, the reference at constant speed, the
+    track's speed clipped to v0 +- 1 as the speed reference, and the safe
+    set queried at the reference's last state (``per_lap`` points a lap at
+    most, the config's ``num_ss_pts_per_lap``), its single-track states
+    turned into the double-track's (yaw rate, slip = atan2(vy, vx),
+    v = hypot(vx, vy), in numpy so that both packages get the same
+    numbers).  ``track`` and ``manager`` are either package's: only their
+    numpy paths are used."""
+    _, N, K, B, seed, _, _ = DT_LMPC_CASES[case]
+    nx, nu, idx_vel = 6, 3, 5          # the double-track's state, controls, speed
+    rng = np.random.default_rng(seed)
+    L = float(track.total_length)
+    s0 = rng.uniform(0, L, B)
+    ey0 = rng.uniform(-0.5, 0.5, B)
+    v0 = np.maximum(np.asarray(track.velocity_np(s0), np.float64)
+                    * rng.uniform(0.9, 1.0, B), 3.5)
+    s_hor = s0[:, None] + v0[:, None] * DT_LMPC_DT * np.arange(N)[None, :]
+    X_ref = np.zeros((B, N, nx), np.float32)
+    X_ref[..., 0] = s_hor
+    X_ref[..., idx_vel] = v0[:, None]
+    x_ic = X_ref[:, 0].copy()
+    x_ic[:, 1] = ey0
+    vel = np.clip(track.velocity_np(s_hor), v0[:, None] - 1.0, v0[:, None] + 1.0)
+    ss_x = np.zeros((B, K, nx), np.float32)
+    ss_j = np.zeros((B, K), np.float32)
+    for b in range(B):
+        sx, sj, _ = manager.query_padded(X_ref[b, -1], K, per_lap)
+        sx = np.asarray(sx, np.float64)
+        ss_x[b] = np.stack([sx[:, 0], sx[:, 1], sx[:, 2], sx[:, 5],
+                            np.arctan2(sx[:, 4], sx[:, 3]), np.hypot(sx[:, 3], sx[:, 4])], -1)
+        ss_j[b] = sj
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return {"x_ic": x_ic, "u_ic": np.zeros((B, nu), np.float32), "X_ref": X_ref,
+            "U_ref": np.zeros((B, N - 1, nu), np.float32),
+            "T_ref": np.full((B, N - 1), DT_LMPC_DT, np.float32),
+            "bound_left": f32(track.left_boundary_np(s_hor)),
+            "bound_right": f32(track.right_boundary_np(s_hor)),
+            "total_length": np.full((B,), L, np.float32),
+            "curvatures": f32(track.curvature_np(s_hor)), "vel_ref": f32(vel),
+            "ss_x": ss_x, "ss_j": ss_j}
+
+
+def dt_lmpc_problem(case: str, device):
+    """(model, track, mpc, numpy lanes) of ``case`` in the port: the sample
+    vehicle's double-track (``sample_vehicle_base`` +
+    ``sample_vehicle_double_track``), Putnam-short's raceline, the case's
+    param file with ``dt_lmpc_overrides``, and the lanes of
+    ``dt_lmpc_fields`` from the three recorded Putnam-short laps.
+    tests/torch_port_fixture.py builds the reference's the same way."""
+    from racing_lmpc_torch import config as tc
+    from racing_lmpc_torch.models import DoubleTrackPlanarModel
+    from racing_lmpc_torch.mpc.racing_mpc import RacingMPC
+    from racing_lmpc_torch.safeset import SafeSetManager, SafeSetRecorder
+    from racing_lmpc_torch.track import RacingTrajectory
+    p = tc.load_ros_params(tc.PARAM_DIR / "sample_vehicle_base.param.yaml",
+                           tc.PARAM_DIR / "sample_vehicle_double_track.param.yaml")
+    model = DoubleTrackPlanarModel(tc.vehicle_config_from_params(p),
+                                   tc.double_track_config_from_params(p))
+    track = RacingTrajectory.from_file(tc.TRACK_DIR.joinpath(*DT_LMPC_TRACK), device=device)
+    name = DT_LMPC_CASES[case][0]
+    cfg = tc.barc_mpc_config(name, **dt_lmpc_overrides(tc.barc_mpc_config(name), case))
+    mpc = RacingMPC(cfg, model, device=device)
+    lap_dir, laps = DT_LMPC_LAPS
+    manager = SafeSetManager(laps, nx=6)
+    SafeSetRecorder(manager).load([str(tc.SS_DIR / lap_dir / f"ss_lap_{i}")
+                                   for i in range(1, laps + 1)], track.total_length)
+    return model, track, mpc, dt_lmpc_fields(track, manager, case,
+                                             cfg.num_ss_pts_per_lap)
+
+
 def load_fixture(case: str) -> dict:
     with np.load(FIXTURE_DIR / f"{case}.npz") as z:
         return {k: z[k] for k in z.files}
@@ -1928,9 +2078,7 @@ def drive_nl_batch(device, case: str = "nl_double_track_b256") -> dict:
         check(bool(torch.isfinite(getattr(out, name)).all()), f"{case}: {name} not finite")
     port = [as_run(out)] + [as_run(mpc.solve_batch(moved(inp, s))[0])
                             for s in range(NL_BATCH_MOVED)]
-    ref = [{"U": U.astype(np.float64), "obj": o.astype(np.float64), "solved": sv,
-            "ell": e.astype(np.float64)}
-           for U, o, sv, e in zip(fx["U_runs"], fx["obj_runs"], fx["solved_runs"], fx["ell_runs"])]
+    ref = dt_lmpc_reference_runs(fx)
     su = fx["scale_u"]
     for b in np.flatnonzero(port[0]["solved"] != ref[0]["solved"]):
         print(f"  lane {b}: port solved={bool(port[0]['solved'][b])} "
@@ -1947,6 +2095,98 @@ def drive_nl_batch(device, case: str = "nl_double_track_b256") -> dict:
     ms = cuda_time_ms(lambda: mpc.solve_batch(inp), reps=3, warmup=1)
     print(f"path {case}: {ms:.1f} ms per batch, {B / (ms / 1e3):.1f} solves/s", flush=True)
     profile(lambda: mpc.solve_batch(inp), ms, f"{case} solve")
+    return launches
+
+
+def dt_lmpc_solver(mpc, entry: str):
+    """The port's solve of a double-track LMPC batch through ``entry``:
+    ``solve_batch``, or ``_solve_impl`` on each lane alone with a zero warm
+    start and its flag set, as ``entry()`` calls it."""
+    import torch
+    from racing_lmpc_torch.mpc.racing_mpc import MPCOutput, map_input
+
+    def solve(inp):
+        if entry == "solve_batch":
+            return mpc.solve_batch(inp)[0]
+        z = torch.zeros((1, mpc.layout.n), dtype=torch.float32, device=mpc.device)
+        valid = torch.ones((1,), dtype=torch.bool, device=mpc.device)
+        outs = [mpc._solve_impl(map_input(lambda a: a[b:b + 1], inp), z, valid)[0]
+                for b in range(inp.x_ic.shape[0])]
+        return MPCOutput(*(torch.cat(a) for a in zip(*outs)))
+    return solve
+
+
+def dt_lmpc_run(model, out) -> dict:
+    """A run's readings: the controls, objective and ``solved`` of each
+    lane, and its largest friction-ellipse residual over the stages."""
+    ell = model.friction_ellipse(out.X_optm[:, :-1], out.U_optm).amax(dim=(-2, -1))
+    return {"U": out.U_optm.double().cpu().numpy(), "obj": out.obj.double().cpu().numpy(),
+            "solved": out.solved.cpu().numpy(), "ell": ell.double().cpu().numpy()}
+
+
+def dt_lmpc_reference_runs(fx, lanes=slice(None)) -> list[dict]:
+    """The reference's stored runs of a double-track LMPC fixture (the
+    lanes ``lanes``), as ``dt_lmpc_run`` reads the port's."""
+    return [{"U": U[lanes].astype(np.float64), "obj": o[lanes].astype(np.float64),
+             "solved": sv[lanes], "ell": e[lanes].astype(np.float64)}
+            for U, o, sv, e in zip(fx["U_runs"], fx["obj_runs"], fx["solved_runs"],
+                                   fx["ell_runs"])]
+
+
+def drive_dt_lmpc(device, case: str) -> dict:
+    """The double-track LMPC at a shipped learning horizon (``DT_LMPC_CASES``:
+    n = 275 through ``solve_batch``, n = 244 through ``_solve_impl``), its
+    QP past the kernel's register variants: the launch counts set to 0 just
+    before one solve of the reference's lanes and read just after (1 to 150
+    ``chol_tri_inv`` launches a solve, none of ``gj_inverse``), finite
+    outputs, then ``solved`` lane by lane and the controls, objective and
+    friction-ellipse residual held to the reference's spread over its 9
+    stored runs (the median over the port's 9 runs on the same inputs).
+    Returns the launches."""
+    import torch
+    from racing_lmpc_torch.mpc.racing_mpc import MPCInput
+    fx = load_fixture(case)
+    entry = DT_LMPC_CASES[case][-1]
+    model, _, mpc, fields = dt_lmpc_problem(case, device)
+    n, m = mpc.layout.n, mpc.layout.m
+    check((n, m) == (int(fx["n"]), int(fx["m"])), f"{case}: QP {n}x{m}, the reference's "
+          f"{int(fx['n'])}x{int(fx['m'])}")
+    inp = fixture_input(fx, MPCInput(**{k: torch.as_tensor(v, device=device)
+                                        for k, v in fields.items()}), device)
+    B = inp.x_ic.shape[0]
+    solves = B if entry == "_solve_impl" else 1
+    solve = dt_lmpc_solver(mpc, entry)
+
+    zero_launches()
+    t = time.perf_counter()
+    out = solve(inp)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = read_launches()
+    print(f"path {case} (n={n}, m={m}, batch {B}, {entry}): launches {launches}, "
+          f"{launches['chol_tri_inv'] / solves:.1f} chol_tri_inv a solve", flush=True)
+    check(0 < launches["chol_tri_inv"] <= 150 * solves and launches["gj_inverse"] == 0,
+          f"{case}: launches {launches}")
+    for name in ("X_optm", "U_optm", "dU_optm", "obj"):
+        check(bool(torch.isfinite(getattr(out, name)).all()), f"{case}: {name} not finite")
+    port, secs = [dt_lmpc_run(model, out)], [first_s]
+    for s in range(DT_LMPC_MOVED):
+        t = time.perf_counter()
+        port.append(dt_lmpc_run(model, solve(moved(inp, s))))
+        secs.append(time.perf_counter() - t)
+    ref = dt_lmpc_reference_runs(fx)
+    su = fx["scale_u"]
+    for b in np.flatnonzero(port[0]["solved"] != ref[0]["solved"]):
+        print(f"  lane {b}: port solved={bool(port[0]['solved'][b])} "
+              f"rp_rel={float(out.rp_rel[b]):.3e} rd_rel={float(out.rd_rel[b]):.3e}; reference "
+              f"r_prim={float(fx['r_prim'][b]):.3e} r_dual={float(fx['r_dual'][b]):.3e}", flush=True)
+    print(f"{case} vs reference, {len(port)} runs on the reference's inputs: solved "
+          f"{[int(r['solved'].sum()) for r in port]} of {B} (reference "
+          f"{[int(r['solved'].sum()) for r in ref]}); {float(np.median(secs)):.2f} s a run "
+          f"(median; the first {first_s:.2f} s)", flush=True)
+    limits = pair_limits(ref, lambda a, b: nl_batch_reading(a, b, su), DT_LMPC_FLOORS)
+    failed = held([nl_batch_reading(p, q, su) for p, q in zip(port, ref)], limits)
+    check(not failed, f"{case}: outside the reference's own spread on {failed}")
     return launches
 
 
@@ -2513,14 +2753,27 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
+    marks = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        # each phase's seconds on a line of its own
+        marks.append(time.perf_counter())
+        print(f"phase {name}: {marks[-1] - marks[-2]:.1f} s ({marks[-1] - t0:.1f} s in all)",
+              flush=True)
+
     chol = kernel_phase(device)
+    lap("kernel chol_tri_inv")
     gj = gj_kernel_phase(device)
+    lap("kernel gj_inverse")
     per_path = {}
     per_path["barc_n20_k48_b256"], mpc, inp, fx, limits = drive_path(
         device, "barc_n20_k48_b256", profiled=True)
     lower_precision_control(mpc, inp, fx, limits)
+    lap("barc_n20_k48_b256 and the TF32 control")
     per_path["entry"] = drive_entry(device)
+    lap("entry")
     per_path["barc_n40_k96_b128"] = drive_path(device, "barc_n40_k96_b128")[0]
+    lap("barc_n40_k96_b128")
     # each controller path's replays, the longest first (settle_replays)
     pending = []
     cosim = {}
@@ -2528,32 +2781,44 @@ def main() -> int:
         per_path[case], cycle_ms, _, acts, replays = drive_controller(device, case)
         cosim[case] = (acts, cycle_ms)
         pending.insert(0, replays)
+        lap(case)
     per_path["barc_tracking_mpc"] = drive_tracking(device)
-    print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("barc_tracking_mpc")
     for case in ADMM_CASES:
         per_path[case] = drive_path(device, case, profiled=True)[0]
+        lap(case)
     per_path["ctrl_barc_lmpc_regression"], *_, replays = drive_controller(
         device, "ctrl_barc_lmpc_regression")
     pending.append(replays)
+    lap("ctrl_barc_lmpc_regression")
     for case in CONT_CASES:
         per_path[case] = drive_continuous(device, case)[0]
+        lap(case)
     stack = drive_stack(device)
     per_path["stack_lqr"], per_path["stack_legacy"] = stack["lqr"], stack["legacy"]
-    print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("stack")
     for case in ("nl_kinematic", "nl_double_track_sqp"):
         per_path[case] = drive_nl_sqp(device, case)
+        lap(case)
     per_path["nl_double_track_b256"] = drive_nl_batch(device)
+    lap("nl_double_track_b256")
+    for case in DT_LMPC_FIXTURE_CASES:
+        per_path[case] = drive_dt_lmpc(device, case)
+        lap(f"dt_lmpc {case}")
     for case in MODEL_CTRL_CASES:
         per_path[case], *_, replays = drive_model_controller(device, case)
         pending.insert(1, replays)
-    print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
+        lap(case)
     drive_native(native_s)
     per_path["bus_barc_lmpc"] = drive_bus(device, *cosim["ctrl_barc_lmpc"])
+    lap("native and bus")
     # the process group is destroyed before the replays spawn their processes
     per_path["sharded_barc_n20_k48_b256"] = drive_scaleout(device)
+    lap("scale-out")
     drive_lu(device)
+    lap("LU branch")
     per_path["bench"] = drive_bench(device)
-    print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("bench")
 
     def settle_accuracy(results: list[dict]) -> None:
         res = results[0]
@@ -2578,7 +2843,7 @@ def main() -> int:
     pending.insert(0, ("accuracy", 1, settle_accuracy))
     pending += bench_rt_replays()
     settle_replays(pending)
-    print(f"replays done in {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("replay pool")
 
     def entry(name, source, replaces, numbers):
         counts = {path: c[name] for path, c in per_path.items()}

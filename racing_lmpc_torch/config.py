@@ -6,9 +6,10 @@ YAML param files (``/**: ros__parameters: ...``) are ingested directly.
 
 PyYAML is not a dependency of the port, so the param files are read by
 ``load_ros_params`` below, a reader of its own for the subset of YAML the
-shipped ROS2 param files use (see its docstring).  The data files are read
-by path from the reference package's ``data/`` directory; nothing of that
-package is imported.
+shipped ROS2 param files use (see its docstring).  The data files (param
+files, tracks, safe-set laps, LQR tables) are the port's own copy under
+``racing_lmpc_torch/data/``, byte for byte the reference's; nothing of the
+reference package is imported or read.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from pathlib import Path
 
 import numpy as np
 
-DATA_DIR = Path(__file__).resolve().parent.parent / "racing_lmpc_tpu" / "data"
+DATA_DIR = Path(__file__).resolve().parent / "data"
 PARAM_DIR = DATA_DIR / "params"
 TRACK_DIR = DATA_DIR / "tracks"
 SS_DIR = DATA_DIR / "ss"
@@ -245,8 +246,11 @@ class RacingMPCConfig:
     # re-solves (damped), restoring the reference's converged-NLP semantics
     # at a bounded per-cycle cost.  The loop stops early once the damped
     # control update falls below sqp_relin_tol (scaled units) — the SQP
-    # convergence criterion — so steady-state cycles cost one solve and
-    # only transients pay for re-linearization.
+    # convergence criterion.  That stop never saves the second solve: after
+    # round 0 the loop forces ``active`` on, as the reference does
+    # (control/loop.py), so every cycle with sqp_relin_steps > 1 makes at
+    # least two solves (the bench's putnam_short_lmpc cycle makes 450
+    # chol_tri_inv launches, three solves of 150).
     sqp_relin_steps: int = 1
     sqp_relin_tol: float = 0.02
 

@@ -56,11 +56,36 @@
 // barrier only once a panel: S2 is the one dependent chain, a warp-level
 // sweep of 32 pivots (an unblocked form with one barrier a pivot, tried
 // first, was held back by that chain at every shape; PERF.md).  Up to
-// n = 96 two matrices share an SM; n <= 240 (kMaxN).
-// Shared memory: at most 45 KB, static, so no per-launch
-// cudaFuncSetAttribute: the host pays one launch and one cudaGetLastError().
+// n = 96 two matrices share an SM; the register variants take n <= 240
+// (kRegMaxN).  Their shared memory is at most 45 KB, static.
 // n = 1 (the IPM's Schur block) takes a one-thread-per-matrix kernel,
 // 1 / sqrt(h).
+//
+// Wide variant, 240 < n <= 1024 (kMaxN; the double-track LMPC's QPs at the
+// shipped learning horizons, n = 244 and 275): the same sweep unblocked,
+// one block of 32 warps per matrix and one __syncthreads() a pivot.  The
+// lower triangle lives packed in dynamic shared memory (n (n + 1) / 2
+// floats, up to n = 336: 229,152 B with the pivot buffers, under the
+// 232,448 B a block may take; the attribute is set once per device, by
+// chol_tri_inv_prepare(), not per launch) or, above that, in place in the
+// output buffer in device memory (one matrix at n = 1024 is 4 MB, resident
+// in the 50 MB L2).  At pivot j warp w takes rows j + w, j + w + 32, ...;
+// its lanes take the columns.  A double-buffered vector v holds pivot j's
+// operands unscaled: row j (k <= j) and column j (i > j) of M.  Every
+// thread forms r = 1 / sqrt(v[j]) itself, and each operand u_k = v[k] r
+// (u_j = r) where it is used: the same two rounded operations, so the
+// same bits, as the mirror's u.  The threads that update row j + 1 and
+// column j + 1 also write those values into the other buffer, which is
+// pivot j + 1's v; the barrier at the end of the pivot is the only one.
+// Every element takes each pivot's multiply-subtract once, in pivot order,
+// so the variant is bit-equal to the mirror as the register variants are.
+// Its time is the n dependent pivots, each a pass over the trailing
+// triangle: about a dozen instructions an element a pivot (two shared
+// loads, the recomputed operand, the product, the difference, the store)
+// where the register variants spend two, so it runs ~40x its one-SM floor
+// at n = 275 (PERF.md; loading four columns at a time or keeping the
+// operands in registers changed nothing measurable).  A register-tiled
+// form is the way to speed it up.
 // A non-positive pivot gives NaN through sqrt, which spreads through that
 // matrix's rows from the bad pivot on — the IPM's step_ok guard relies on
 // it (ipm.py:434-444).  Nothing traps or exits early, and no other matrix
@@ -84,7 +109,10 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxN = 240;
+constexpr int kMaxN = 1024;      // the largest n the kernel takes
+constexpr int kRegMaxN = 240;    // the register variants' largest n
+constexpr int kSmemMaxN = 336;   // the wide variant's triangle in shared memory
+constexpr int kWideThreads = 1024;
 constexpr int kLd = 36;   // row stride of the shared panel arrays: 16-byte rows
 constexpr int W = 8;      // warps a matrix: 256 threads
 
@@ -370,6 +398,74 @@ chol_tri_inv_panel_kernel(const float* __restrict__ H, float* __restrict__ out, 
     });
 }
 
+// the wide variant's dynamic shared memory: the two pivot buffers, and the
+// packed lower triangle when it is kept there
+__host__ __device__ constexpr size_t wide_smem_bytes(int n, bool in_shared)
+{
+    return sizeof(float) * (2 * (size_t)n + (in_shared ? (size_t)n * (n + 1) / 2 : 0));
+}
+
+// 240 < n <= kMaxN: the sweep with one barrier a pivot, M in shared memory
+// (kShared) or in place in out
+template <bool kShared>
+__global__ void __launch_bounds__(kWideThreads, 1)
+chol_tri_inv_wide_kernel(const float* __restrict__ H, float* out, int n)
+{
+    extern __shared__ __align__(16) float smem[];
+    float* const P = smem + 2 * n;   // the packed triangle, row i at i (i + 1) / 2
+    const int w = threadIdx.x >> 5, l = threadIdx.x & 31, nw = blockDim.x >> 5;
+    const size_t base = (size_t)blockIdx.x * (size_t)n * (size_t)n;
+    const float* A = H + base;
+    float* O = out + base;
+    auto row_of = [&](int i) -> float* {
+        return kShared ? P + (size_t)i * (i + 1) / 2 : O + (size_t)i * n;
+    };
+
+    // the lower triangle in; in place, the strictly upper part of out is
+    // zeroed here and never touched again.  Pivot 0's v is column 0.
+    for (int i = w; i < n; i += nw) {
+        float* row = row_of(i);
+        for (int k = l; k < n; k += 32) {
+            const float x = k <= i ? A[(size_t)i * n + k] : 0.0f;
+            if (k <= i || !kShared) row[k] = x;
+            if (k == 0) smem[i] = x;
+        }
+    }
+    __syncthreads();
+
+    for (int j = 0; j < n; ++j) {
+        const float* vc = smem + (j & 1) * n;        // pivot j's operands
+        float* vn = smem + ((j + 1) & 1) * n;        // pivot j + 1's
+        const float r = __fdiv_rn(1.0f, __fsqrt_rn(vc[j]));   // NaN if not PD
+        for (int i = j + w; i < n; i += nw) {
+            float* row = row_of(i);
+            if (i == j) {
+                // row j of X is final: u_k (k < j) and r
+                for (int k = l; k <= j; k += 32)
+                    row[k] = k < j ? __fmul_rn(vc[k], r) : r;
+                continue;
+            }
+            const float li = __fmul_rn(vc[i], r);
+            for (int k = l; k <= i; k += 32) {
+                const float uk = k == j ? r : __fmul_rn(vc[k], r);
+                const float x = __fsub_rn(k == j ? 0.0f : row[k], __fmul_rn(li, uk));
+                row[k] = x;
+                if (i == j + 1) vn[k] = x;            // row j + 1
+                else if (k == j + 1) vn[i] = x;       // column j + 1
+            }
+        }
+        __syncthreads();
+    }
+
+    if (kShared) {
+        for (int i = w; i < n; i += nw) {
+            const float* row = row_of(i);
+            for (int k = l; k < n; k += 32)
+                O[(size_t)i * n + k] = k <= i ? row[k] : 0.0f;
+        }
+    }
+}
+
 // n = 1: one thread a matrix
 __global__ void chol_tri_inv_1x1_kernel(const float* __restrict__ H,
                                         float* __restrict__ out, int G)
@@ -386,11 +482,11 @@ void launch(const float* H, float* out, int G, int n, cudaStream_t s)
     chol_tri_inv_panel_kernel<RA><<<G, 32 * W, 0, s>>>(H, out, n);
 }
 
-// the variant of p panels: whole panels of row tiles, up to n = kMaxN
+// the variant of p panels: whole panels of row tiles, up to n = kRegMaxN
 template <int... P>
 Launch variant(int panels, std::integer_sequence<int, P...>)
 {
-    constexpr int tpp = 32 / W, max_ra = (kMaxN + W - 1) / W;
+    constexpr int tpp = 32 / W, max_ra = (kRegMaxN + W - 1) / W;
     static const Launch fns[] = {
         launch<(tpp * (P + 1) < max_ra ? tpp * (P + 1) : max_ra)>...};
     return fns[panels - 1];
@@ -400,6 +496,16 @@ Launch variant(int panels, std::integer_sequence<int, P...>)
 
 // The largest n the kernel takes; the wrapper reads it from here.
 extern "C" int chol_tri_inv_max_n() { return kMaxN; }
+
+// Lets the wide variant take its shared memory (above the 48 KB default) on
+// the current device; call once per device before the first launch there.
+// Returns the CUDA error (0 on success).
+extern "C" int chol_tri_inv_prepare()
+{
+    return (int)cudaFuncSetAttribute(chol_tri_inv_wide_kernel<true>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)wide_smem_bytes(kSmemMaxN, true));
+}
 
 // H, out: (G, n, n) contiguous f32 on the device; stream: a cudaStream_t.
 // Returns cudaGetLastError() after the launch (0 on success), or
@@ -413,9 +519,15 @@ extern "C" int chol_tri_inv_f32(const float* H, float* out, int G, int n,
     const cudaStream_t s = (cudaStream_t)stream;
     if (n == 1) {
         chol_tri_inv_1x1_kernel<<<(G + 255) / 256, 256, 0, s>>>(H, out, G);
-        return (int)cudaGetLastError();
+    } else if (n <= kRegMaxN) {
+        constexpr int kPanels = (kRegMaxN + 31) / 32;
+        variant((n + 31) / 32, std::make_integer_sequence<int, kPanels>())(H, out, G, n, s);
+    } else if (n <= kSmemMaxN) {
+        chol_tri_inv_wide_kernel<true><<<G, kWideThreads, wide_smem_bytes(n, true), s>>>(
+            H, out, n);
+    } else {
+        chol_tri_inv_wide_kernel<false><<<G, kWideThreads, wide_smem_bytes(n, false), s>>>(
+            H, out, n);
     }
-    constexpr int kPanels = (kMaxN + 31) / 32;
-    variant((n + 31) / 32, std::make_integer_sequence<int, kPanels>())(H, out, G, n, s);
     return (int)cudaGetLastError();
 }

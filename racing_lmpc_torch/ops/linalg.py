@@ -188,8 +188,17 @@ def chol_tri_inv_sweep(H: Tensor) -> Tensor:
 
 
 @functools.cache
-def _kernel_fn():
-    fn = _kernels.load("chol_tri_inv").chol_tri_inv_f32
+def _kernel_fn(device_index: int):
+    """The kernel's entry point, its wide variant's shared memory granted
+    on device ``device_index`` (once a device, when the library is first
+    used there)."""
+    lib = _kernels.load("chol_tri_inv")
+    with torch.cuda.device(device_index):
+        err = lib.chol_tri_inv_prepare()
+    if err != 0:
+        raise RuntimeError(f"chol_tri_inv: setting the wide variant's shared memory "
+                           f"failed: CUDA error {err}")
+    fn = lib.chol_tri_inv_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -214,7 +223,8 @@ def chol_tri_inv(H: Tensor) -> Tensor:
     the plain version; a CUDA tensor launches the hand-written kernel
     (``csrc/chol_tri_inv.cu``) or raises — there is no fall back.
     ``chol_tri_inv.launches`` counts the kernel launches.  The kernel takes
-    n <= ``chol_max_n()`` and raises ``ValueError`` above it.
+    n <= ``chol_max_n()`` (1024; register variants up to 240, a wide variant
+    in shared memory or L2 above) and raises ``ValueError`` above it.
 
     The kernel replaces the TPU kernel ``chol_tri_inv_fused``
     (``racing_lmpc_tpu/ops/pallas_linalg.py:312-368``).  On an H100 at the
@@ -223,7 +233,8 @@ def chol_tri_inv(H: Tensor) -> Tensor:
     at 3.35 TB/s) against 112 MFLOP of f32
     (n^3/3 for the factor and n^3/3 for the inverse: 1.7 us at 67 TFLOP/s),
     so bytes bound it; the dependent chain of its n pivots sets its time
-    (see the kernel source).
+    (see the kernel source).  At the double-track LMPC's (32, 275, 275) the
+    444 MFLOP bound it (6.6 us).
     """
     if H.dtype != torch.float32:
         raise TypeError(f"chol_tri_inv takes float32, got {H.dtype}")
@@ -242,9 +253,10 @@ def chol_tri_inv(H: Tensor) -> Tensor:
     out = torch.empty_like(H)
     if G == 0 or n == 0:
         return out
-    with torch.cuda.device(H.device):
-        err = _kernel_fn()(H.data_ptr(), out.data_ptr(), G, n,
-                           torch.cuda.current_stream(H.device).cuda_stream)
+    index = H.device.index if H.device.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(index):
+        err = _kernel_fn(index)(H.data_ptr(), out.data_ptr(), G, n,
+                                torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"chol_tri_inv kernel launch failed: CUDA error {err}")
     chol_tri_inv.launches += 1

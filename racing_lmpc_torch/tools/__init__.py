@@ -30,10 +30,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = ROOT / "build"
-# the JAX package and its tools, and the records and data they wrote
+# the JAX package and its tools, the records and data they wrote, and the
+# port's byte-for-byte copy of that data
 PROTECTED = tuple(ROOT / p for p in (
     "racing_lmpc_tpu", "scripts", "tests/data/acc_instances", "ACCURACY.json",
-    "PARETO.json", "MULTIHOST.json"))
+    "PARETO.json", "MULTIHOST.json", "racing_lmpc_torch/data"))
 
 
 def writable(path) -> Path:

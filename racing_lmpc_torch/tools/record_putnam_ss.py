@@ -11,7 +11,8 @@ hull stays dynamically feasible (the reference tool's docstring gives the
 reasons).  A ``SafeSetRecorder`` is fed every cycle's state, previous
 control, curvature and time and writes each completed lap as
 ``ss_lap_<i>_{x,u,k,t}.txt`` under ``--out`` (``build/ss/putnam_short/`` by
-default), never into the shipped laps of ``racing_lmpc_tpu/data/ss``.
+default), never into the shipped laps (``racing_lmpc_torch/data/ss``, the
+port's copy of the reference's) nor the reference's own.
 """
 
 from __future__ import annotations

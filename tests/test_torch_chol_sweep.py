@@ -27,8 +27,9 @@ def sweep_np(H: np.ndarray) -> np.ndarray:
 
 
 # and for the plain comparison, the edges of the JAX version's blocks of 32
-# further out
-@pytest.mark.parametrize("n", SIZES + [64, 96, 97])
+# further out, and the double-track LMPC's QP sizes past the kernel's
+# register variants (the sample_mpc and iac_car_lmpc horizons)
+@pytest.mark.parametrize("n", SIZES + [64, 96, 97, 244, 275])
 def test_sweep_matches_jax(n):
     H = spd(np.random.default_rng(300 + n), 5, n)
     Xj, Xt = twin(lambda h: jl.tri_inv_lower(jl.chol_lower(h)), tl.chol_tri_inv_sweep, H)
@@ -94,3 +95,12 @@ def test_wrapper_cpu_path_is_plain_at_any_n():
     H = spd(np.random.default_rng(11), 1, 241)
     X = tl.chol_tri_inv(torch.as_tensor(H)).numpy()
     assert np.array_equal(X, tl.chol_tri_inv_plain(torch.as_tensor(H)).numpy())
+
+
+@pytest.mark.parametrize("n", [241, 244, 275, 337])
+def test_sweep_matches_plain_past_the_register_variants(n):
+    # the wide variant's sizes (one pivot past 240, the two LMPC horizons,
+    # one past the shared-memory triangle): the mirror the card holds the
+    # kernel to bit for bit, against the plain version the CPU path runs
+    H = torch.as_tensor(spd(np.random.default_rng(500 + n), 2, n))
+    assert rel_err(tl.chol_tri_inv_sweep(H).numpy(), tl.chol_tri_inv_plain(H).numpy()) < 1e-4

@@ -41,7 +41,7 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("n", [1, 28, 40, 58, 73, 87, 175, 216])
+@pytest.mark.parametrize("n", [1, 28, 40, 58, 73, 87, 175, 216, 244, 275])
 def test_chol_tri_inv_kernel_matches_plain(cuda, n):
     H = torch.as_tensor(spd(np.random.default_rng(n), 32, n), device=cuda)
     before = tl.chol_tri_inv.launches
@@ -50,19 +50,24 @@ def test_chol_tri_inv_kernel_matches_plain(cuda, n):
     torch.cuda.synchronize()
     assert tl.chol_tri_inv.launches == before + 1
     assert rel_err(np_of(K), np_of(P)) < 1e-4
+    # the limit: register variants to n = 240, the wide variant to 1024
+    assert tl.chol_max_n() == 1024
     with pytest.raises(ValueError):
-        tl.chol_tri_inv(torch.zeros(1, 241, 241, device=cuda))
+        tl.chol_tri_inv(torch.zeros(1, 1025, 1025, device=cuda))
 
 
 @pytest.mark.parametrize("G", [1, 32])
 @pytest.mark.parametrize("n", [1, 2, 28, 31, 32, 33, 40, 58, 73, 87, 96, 97, 175, 216,
-                               225, 240])
+                               225, 240, 241, 244, 256, 274, 275, 320, 336, 337, 400,
+                               512, 1024])
 def test_chol_tri_inv_kernel_matches_sweep_bit_for_bit(cuda, n, G):
     # the kernel and its step mirror round every operation alike; the sizes
     # take in the panel edges (31-33, 96/97 where two matrices stop sharing
-    # an SM), the QP sizes of the nonlinear-row paths (28, 40, 58, 73) and
-    # the last variant (225-240: its last panel holds 2 of 4 row tiles) up
-    # to the limit
+    # an SM), the QP sizes of the nonlinear-row paths (28, 40, 58, 73), the
+    # last register variant (225-240: its last panel holds 2 of 4 row
+    # tiles), and the wide variant: one past 240, the double-track LMPC's
+    # 244 and 274-275, the last size of the triangle in shared memory (336)
+    # and the first in device memory (337), up to the limit
     H = torch.as_tensor(spd(np.random.default_rng(1000 + n), G, n), device=cuda)
     K = tl.chol_tri_inv(H)
     S = tl.chol_tri_inv_sweep(H)

@@ -39,7 +39,9 @@ port's bench (``racing_lmpc_torch/bench.py``) is held to (see
 (``racing_lmpc_torch/tools``) are held to: the reference tool's engine
 records, the seed-lap recorder's first cycles, and the spread of
 scripts/ground_accuracy.py's captures (see ``compute_tools_engine``,
-``compute_tools_putnam_ss`` and ``compute_tools_capture``).
+``compute_tools_putnam_ss`` and ``compute_tools_capture``);
+``DT_LMPC_FIXTURES`` hold the double-track LMPC batches at the shipped
+learning horizons, n = 275 and 244 (see ``compute_dt_lmpc``).
 
 Run from the repository root:
 
@@ -530,6 +532,11 @@ MODEL_CTRL_FIXTURES = {
 }
 
 
+# the double-track LMPC cases the card drives (chip_smoke.DT_LMPC_CASES): the
+# shipped learning horizons, n = 275 and 244
+DT_LMPC_FIXTURES = ("dt_lmpc_iac_n60_b32", "dt_lmpc_sample_n50_b1")
+
+
 def nl_problem(kind: str, n: int, free: bool = False):
     """The reference's (model, track, mpc) of a nonlinear-row scenario, as
     tests/test_nl_constraints.py builds them (``chip_smoke.nl_problem`` is
@@ -704,6 +711,87 @@ def compute_nl(case: str) -> dict:
     if kind == "double_track":
         out["ell_runs"] = np.stack([_ellipse_max(model, r.X_optm, r.U_optm) for r in runs])
         out["s_corner"] = np.float64(s_corner)
+    return out
+
+
+def dt_lmpc_problem(case: str):
+    """The reference's (model, track, mpc, numpy lanes) of a double-track
+    LMPC case, as ``chip_smoke.dt_lmpc_problem`` builds the port's."""
+    _jax_on_cpu()
+    from chip_smoke import DT_LMPC_CASES, DT_LMPC_LAPS, DT_LMPC_TRACK, dt_lmpc_fields, \
+        dt_lmpc_overrides
+    from racing_lmpc_tpu import config as jc
+    from racing_lmpc_tpu.models import DoubleTrackPlanarModel
+    from racing_lmpc_tpu.mpc.racing_mpc import RacingMPC
+    from racing_lmpc_tpu.safeset import SafeSetManager, SafeSetRecorder
+    from racing_lmpc_tpu.track import RacingTrajectory
+    p = jc.load_ros_params(jc.PARAM_DIR / "sample_vehicle_base.param.yaml",
+                           jc.PARAM_DIR / "sample_vehicle_double_track.param.yaml")
+    model = DoubleTrackPlanarModel(jc.vehicle_config_from_params(p),
+                                   jc.double_track_config_from_params(p))
+    track = RacingTrajectory.from_file(jc.TRACK_DIR.joinpath(*DT_LMPC_TRACK))
+    name = DT_LMPC_CASES[case][0]
+    cfg = jc.barc_mpc_config(name, **dt_lmpc_overrides(jc.barc_mpc_config(name), case))
+    mpc = RacingMPC(cfg, model)
+    lap_dir, laps = DT_LMPC_LAPS
+    manager = SafeSetManager(laps, nx=6, nu=2)
+    SafeSetRecorder(manager).load([str(jc.SS_DIR / lap_dir / f"ss_lap_{i}")
+                                   for i in range(1, laps + 1)], track.total_length)
+    return model, track, mpc, dt_lmpc_fields(track, manager, case, cfg.num_ss_pts_per_lap)
+
+
+def dt_lmpc_solver(mpc, entry: str):
+    """The reference's solve of a double-track LMPC batch of numpy lanes
+    through ``entry``: ``solve_batch`` with no warm start, or ``jax.jit`` of
+    ``_solve_impl`` on each lane alone (as ``__graft_entry__.entry`` calls
+    it).  Returns the outputs with a leading batch dimension."""
+    import jax
+    import jax.numpy as jnp
+    from racing_lmpc_tpu.mpc.racing_mpc import MPCInput
+    n = mpc.layout.n
+    one = jax.jit(mpc._solve_impl)
+
+    def solve(fields):
+        B = len(fields["x_ic"])
+        if entry == "solve_batch":
+            inp = MPCInput(**{k: jnp.asarray(v) for k, v in fields.items()})
+            return mpc.solve_batch(inp, jnp.zeros((B, n), jnp.float32),
+                                   jnp.zeros((B,), bool))[0]
+        outs = [one(MPCInput(**{k: jnp.asarray(v[b]) for k, v in fields.items()}),
+                    jnp.zeros((n,), jnp.float32), jnp.ones((), bool))[0] for b in range(B)]
+        return jax.tree_util.tree_map(lambda *a: jnp.stack(a), *outs)
+    return solve
+
+
+def compute_dt_lmpc(case: str) -> dict:
+    """A double-track LMPC fixture (``chip_smoke.DT_LMPC_CASES``): the lanes
+    (``inp_<field>``), the reference's runs on them and on
+    ``DT_LMPC_MOVED`` moved copies (``U_runs``, ``X_runs``, ``obj_runs``,
+    ``solved_runs``, ``ell_runs``; ``r_prim``/``r_dual`` of the first run)
+    and the QP's size (``n``, ``m``).  Case A (n = 275, 32 lanes) takes
+    ~20 min on the CPU, most of it XLA compiling, case B (n = 244) ~10:
+
+        JAX_PLATFORMS=cpu python tests/torch_port_fixture.py \
+            dt_lmpc_iac_n60_b32 dt_lmpc_sample_n50_b1
+    """
+    _jax_on_cpu()
+    from chip_smoke import DT_LMPC_CASES, DT_LMPC_MOVED
+    model, _, mpc, fields = dt_lmpc_problem(case)
+    solve = dt_lmpc_solver(mpc, DT_LMPC_CASES[case][-1])
+    runs = []
+    for f in [fields] + [_moved_fields(fields, s) for s in range(DT_LMPC_MOVED)]:
+        runs.append(solve(f))
+        print(f"{case}: run {len(runs)} solved {int(np.asarray(runs[-1].solved).sum())} "
+              f"of {len(fields['x_ic'])}", flush=True)
+    out = {f"inp_{k}": v for k, v in fields.items()}
+    out.update(U_runs=np.stack([np.asarray(r.U_optm) for r in runs]),
+               X_runs=np.stack([np.asarray(r.X_optm) for r in runs]),
+               obj_runs=np.stack([np.asarray(r.obj) for r in runs]),
+               solved_runs=np.stack([np.asarray(r.solved) for r in runs]),
+               ell_runs=np.stack([_ellipse_max(model, r.X_optm, r.U_optm) for r in runs]),
+               r_prim=np.asarray(runs[0].r_prim), r_dual=np.asarray(runs[0].r_dual),
+               scale_u=np.asarray(mpc.scale_u), n=np.int64(mpc.layout.n),
+               m=np.int64(mpc.layout.m))
     return out
 
 
@@ -1202,7 +1290,7 @@ def main() -> None:
     for case in sys.argv[1:] or [*CASES, *CTRL_CASES, *ADMM_CASES, *CONT_CASES, "stack",
                                  *NL_CASES, *MODEL_CTRL_FIXTURES, *BUS_CASES, ENTRY_CASE,
                                  *BENCH_CHAIN_CASES, *BENCH_RT_CASES, TOOLS_ENGINE_CASE,
-                                 TOOLS_SS_CASE, TOOLS_CAPTURE_CASE]:
+                                 TOOLS_SS_CASE, TOOLS_CAPTURE_CASE, *DT_LMPC_FIXTURES]:
         path = fixture_path(case)
         if case == TOOLS_ENGINE_CASE:
             arrays = compute_tools_engine()
@@ -1218,6 +1306,8 @@ def main() -> None:
             arrays = compute_entry()
         elif case in BUS_CASES:
             arrays = compute_bus(case)
+        elif case in DT_LMPC_FIXTURES:
+            arrays = compute_dt_lmpc(case)
         elif case == "nl_qp_n10":
             arrays = compute_nl_qp()
         elif case in NL_CASES:
