@@ -10,7 +10,8 @@
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
    at the paths' shapes and at the other shipped sizes; ``chol_tri_inv``
    also bit for bit against its step mirror ``chol_tri_inv_sweep``, on a
-   wide-spectrum case, the wide variant's sizes (n = 241 to 1024), a batch
+   wide-spectrum case, the wide variant's sizes (n = 241 to 1024, the
+   edge of its triangle in shared memory among them), a batch
    with one indefinite lane at n = 87 and at n = 275 (NaN there only), and
    its raise above n = 1024; ``gj_inverse`` on a pivoting case,
    exact |pivot| ties, the edges of its size classes (b = 1 to 64) and a
@@ -68,7 +69,8 @@
    through ``solve_batch``) and the upstream sample_mpc (N=50, n = 244, one
    scenario through ``_solve_impl``), its QPs past the kernel's register
    variants, held as the double-track batch is
-   (``tests/data/torch_port/dt_lmpc_*.npz``).
+   (``tests/data/torch_port/dt_lmpc_*.npz``), and one solve of each
+   profiled (device busy, idle share, ``chol_tri_inv``'s share of busy).
 
 7. The entry point: ``racing_lmpc_torch.entry.entry()`` (the twin of
    ``__graft_entry__.entry``), its ``fn`` on its example arguments: finite
@@ -123,6 +125,7 @@ script exits non-zero without that last line.  It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -325,13 +328,15 @@ def kernel_phase(device) -> dict:
     # the wide variant (n > 240): the double-track LMPC's batch (n = 275)
     # and single solve (n = 275, and the sample config's 244), one pivot
     # past the register variants, the shared-memory triangle's last size
-    # and the first in device memory, up to the limit
+    # (302) and the first in device memory (303), the triangle's earlier
+    # edge (336, 337), up to the limit; and a timed size in device memory
     cases.append(("H, double-track LMPC batch N=60 K=96", spd_batch(rng, 32, 275), True))
     cases.append(("H, double-track LMPC single N=60 K=96", spd_batch(rng, 1, 275), True))
     cases.append(("H, double-track LMPC single N=50 K=96", spd_batch(rng, 1, 244), True))
-    for n in (241, 244, 256, 274, 275, 320, 336, 337, 400, 512):
+    for n in (241, 244, 256, 274, 275, 302, 303, 320, 336, 337, 400, 512):
         cases.append((f"wide n={n}", spd_batch(rng, 4, n), False))
     cases.append(("wide n=1024", spd_batch(rng, 1, linalg.chol_max_n()), False))
+    cases.append(("wide, triangle in device memory", spd_batch(rng, 1, 512), True))
     main = None
     for name, Hn, timed in cases:
         H = torch.as_tensor(Hn, device=device)
@@ -553,9 +558,11 @@ def profile(fn, wall_ms: float, label: str) -> float:
     busy = sum(r[2] for r in rows)
     launches = sum(r[1] for r in rows)
     idle = 1 - busy / wall_ms
+    chol = sum(r[2] for r in rows if "chol_tri_inv" in r[0])
     print(f"profile {label}: {launches} kernel launches, device busy "
-          f"{busy:.1f} ms of {wall_ms:.1f} ms wall (idle share {idle:.3f}; the profiled "
-          f"call and its reading {time.perf_counter() - t:.1f} s)", flush=True)
+          f"{busy:.1f} ms of {wall_ms:.1f} ms wall (idle share {idle:.3f}; chol_tri_inv "
+          f"{chol:.1f} ms, {chol / busy:.3f} of busy; the profiled call and its reading "
+          f"{time.perf_counter() - t:.1f} s)", flush=True)
     for key, count, t in sorted(rows, key=lambda r: -r[2])[:6]:
         print(f"  {t:8.2f} ms  {count:6d} x  {key[:90]}", flush=True)
     return idle
@@ -2141,8 +2148,9 @@ def drive_dt_lmpc(device, case: str) -> dict:
     ``chol_tri_inv`` launches a solve, none of ``gj_inverse``), finite
     outputs, then ``solved`` lane by lane and the controls, objective and
     friction-ellipse residual held to the reference's spread over its 9
-    stored runs (the median over the port's 9 runs on the same inputs).
-    Returns the launches."""
+    stored runs (the median over the port's 9 runs on the same inputs); one
+    more solve profiled (device busy, idle share, ``chol_tri_inv``'s share of
+    busy).  Returns the launches."""
     import torch
     from racing_lmpc_torch.mpc.racing_mpc import MPCInput
     fx = load_fixture(case)
@@ -2184,6 +2192,7 @@ def drive_dt_lmpc(device, case: str) -> dict:
           f"{[int(r['solved'].sum()) for r in port]} of {B} (reference "
           f"{[int(r['solved'].sum()) for r in ref]}); {float(np.median(secs)):.2f} s a run "
           f"(median; the first {first_s:.2f} s)", flush=True)
+    profile(lambda: solve(inp), float(np.median(secs[1:])) * 1e3, f"{case} solve")
     limits = pair_limits(ref, lambda a, b: nl_batch_reading(a, b, su), DT_LMPC_FLOORS)
     failed = held([nl_batch_reading(p, q, su) for p, q in zip(port, ref)], limits)
     check(not failed, f"{case}: outside the reference's own spread on {failed}")
@@ -2749,9 +2758,15 @@ def main() -> int:
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     native_s = native_build()
     for name, log in logs.items():
+        # each entry function's registers and spills, under its (mangled) name
+        entry = None
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+            if "Compiling entry function" in line or "Function properties for" in line:
+                entry = line.split("'")[1] if "'" in line else line.split()[-1]
+                # the anonymous namespace's prefix off: "chol_tri_inv_wide_kernelILb1EEEvPKfPfi"
+                entry = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", entry)
+            elif "registers" in line or "spill" in line:
+                print(f"  {name} {entry}: {line.strip()}", flush=True)
 
     marks = [time.perf_counter()]
 

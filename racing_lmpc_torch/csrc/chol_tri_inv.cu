@@ -62,30 +62,47 @@
 // 1 / sqrt(h).
 //
 // Wide variant, 240 < n <= 1024 (kMaxN; the double-track LMPC's QPs at the
-// shipped learning horizons, n = 244 and 275): the same sweep unblocked,
-// one block of 32 warps per matrix and one __syncthreads() a pivot.  The
-// lower triangle lives packed in dynamic shared memory (n (n + 1) / 2
-// floats, up to n = 336: 229,152 B with the pivot buffers, under the
-// 232,448 B a block may take; the attribute is set once per device, by
-// chol_tri_inv_prepare(), not per launch) or, above that, in place in the
-// output buffer in device memory (one matrix at n = 1024 is 4 MB, resident
-// in the 50 MB L2).  At pivot j warp w takes rows j + w, j + w + 32, ...;
-// its lanes take the columns.  A double-buffered vector v holds pivot j's
-// operands unscaled: row j (k <= j) and column j (i > j) of M.  Every
-// thread forms r = 1 / sqrt(v[j]) itself, and each operand u_k = v[k] r
-// (u_j = r) where it is used: the same two rounded operations, so the
-// same bits, as the mirror's u.  The threads that update row j + 1 and
-// column j + 1 also write those values into the other buffer, which is
-// pivot j + 1's v; the barrier at the end of the pivot is the only one.
-// Every element takes each pivot's multiply-subtract once, in pivot order,
-// so the variant is bit-equal to the mirror as the register variants are.
-// Its time is the n dependent pivots, each a pass over the trailing
-// triangle: about a dozen instructions an element a pivot (two shared
-// loads, the recomputed operand, the product, the difference, the store)
-// where the register variants spend two, so it runs ~40x its one-SM floor
-// at n = 275 (PERF.md; loading four columns at a time or keeping the
-// operands in registers changed nothing measurable).  A register-tiled
-// form is the way to speed it up.
+// shipped learning horizons, n = 244 and 275): the same blocked sweep in
+// panels of 32 pivots, one block of 16 warps (kWideThreads) a matrix.  The
+// lower triangle lives packed in dynamic shared memory up to n = 302
+// (kSmemMaxN: n (n + 1) / 2 floats beside D, UP, rr and UT, 231,268 B at
+// n = 302, under the 232,448 B a block may take; chol_tri_inv_prepare()
+// grants both instances their shared memory once a device) and above that
+// in place in the output buffer in device memory (4 MB at n = 1024,
+// resident in the 50 MB L2), where each entry is read and written once a
+// panel.  UT (32 x n) holds each pivot's u over every column: the l_k of
+// the rows below the panel and the panel rows' X left of it.  For each
+// panel:
+//   S1, S2  warp 0 loads the diagonal block and sweeps it alone
+//           (wide_factor_panel, a loop over the pivots);
+//   S3      each row below takes the panel's pivots on the panel's columns
+//           in registers, one thread a row, and keeps its l_i in UT; each
+//           column left of the panel goes down the panel rows by forward
+//           substitution, one thread a column, into UT;
+//   S4      every row below takes the deferred update on every column
+//           outside the panel, register-tiled: a thread loads a tile of 8
+//           rows by 4 columns (kTR x kTC) once, applies the 32 pivots in
+//           ascending order from two 16-byte loads of l and one of u a
+//           pivot, a __fmul_rn and a __fsub_rn an entry a pivot, and
+//           stores it once.
+// S4 runs beside the next panel: warp 0 first updates the next panel's
+// diagonal block itself, then runs that panel's S1 and S2, while the 12
+// warps outside its scheduler update the rest and warps 4, 8 and 12 (which
+// share it) write the finished panel rows out; the first panel's S1 and S2
+// run beside the load.  A panel costs two barriers.  The blocking changes
+// no bit, by the argument above: each entry takes each pivot's
+// multiply-subtract once, with the same two factors, in pivot order (S2
+// and S3 pivot by pivot, the substitution down the panel rows, S4's tiles
+// pivot by pivot), after the panels before and before those after;
+// tests/test_torch_chol_blocked.py repeats the stage order in PyTorch.
+// At batch 1 one SM holds the matrix, and every product and difference is
+// an instruction of its own (no FMA: the kernel is held bit for bit to a
+// mirror that rounds each), so its floor is the 2/3 n^3 operations at one
+// SM's f32 issue rate, twice the one-SM arithmetic floor below.  The
+// tensor cores are not used: the port's numerics are f32 without TF32, and
+// TF32 or 3xTF32 products change bits.  Above that floor it is held by S4
+// on its 12 warps, S3's thread-per-row pivot chains and the one-warp S2
+// chain beside S4 (the stage split, from clock64 stamps, is in PERF.md).
 // A non-positive pivot gives NaN through sqrt, which spreads through that
 // matrix's rows from the bad pivot on — the IPM's step_ok guard relies on
 // it (ipm.py:434-444).  Nothing traps or exits early, and no other matrix
@@ -98,8 +115,8 @@
 // 3.5 us.  At batch 1 one SM holds the matrix, whose arithmetic floor is
 // 2/3 n^3 / (67 TFLOP/s / 132): 7 us at n = 175, 13 us at n = 216.  At
 // batch 1 the one-warp panel sweeps (S2) and the shuffled row sweeps (S3)
-// are the dependent chains; registers and spills of each variant: ptxas
-// -v, printed by chip_smoke.py; times in PERF.md.
+// are the dependent chains of the register variants; registers and spills
+// of each variant: ptxas -v, printed by chip_smoke.py; times in PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -111,8 +128,10 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxN = 1024;      // the largest n the kernel takes
 constexpr int kRegMaxN = 240;    // the register variants' largest n
-constexpr int kSmemMaxN = 336;   // the wide variant's triangle in shared memory
-constexpr int kWideThreads = 1024;
+constexpr int kSmemMaxN = 302;   // the wide variant's triangle in shared memory
+constexpr int kSmemOptin = 232448;   // the shared memory a block may take
+constexpr int kWideThreads = 512;
+constexpr int kTR = 8, kTC = 4;      // the wide variant's S4 tile, rows x columns
 constexpr int kLd = 36;   // row stride of the shared panel arrays: 16-byte rows
 constexpr int W = 8;      // warps a matrix: 256 threads
 
@@ -398,72 +417,322 @@ chol_tri_inv_panel_kernel(const float* __restrict__ H, float* __restrict__ out, 
     });
 }
 
-// the wide variant's dynamic shared memory: the two pivot buffers, and the
-// packed lower triangle when it is kept there
+// The wide variant's shared memory, in floats from the start of the dynamic
+// buffer: D and UP (the panel's diagonal block and its u on the panel, as
+// the register variants'), UT (32 x wide_ld(n), row p: u^(p) over every
+// column k, the l_k below the panel and row p of X left of it), rr, and the
+// packed lower triangle when it is kept there.  UT's rows run to n rounded
+// up to 8, so the last row tile reads inside them.
+__host__ __device__ constexpr int wide_ld(int n) { return (n + 7) & ~7; }
+
 __host__ __device__ constexpr size_t wide_smem_bytes(int n, bool in_shared)
 {
-    return sizeof(float) * (2 * (size_t)n + (in_shared ? (size_t)n * (n + 1) / 2 : 0));
+    return sizeof(float) * (2 * 32 * kLd + 32 * (size_t)wide_ld(n) + 32
+                            + (in_shared ? (size_t)n * (n + 1) / 2 : 0));
 }
 
-// 240 < n <= kMaxN: the sweep with one barrier a pivot, M in shared memory
-// (kShared) or in place in out
+static_assert(wide_smem_bytes(kSmemMaxN, true) <= kSmemOptin &&
+              wide_smem_bytes(kSmemMaxN + 1, true) > kSmemOptin,
+              "kSmemMaxN is the last n whose triangle fits in shared memory");
+static_assert(wide_smem_bytes(kMaxN, false) <= kSmemOptin, "UT fits at kMaxN");
+static_assert(kTR == 2 * kTC, "the trailing tiles' count below assumes kTR = 2 kTC");
+
+// S2 of the wide variant: one warp sweeps the diagonal block D (nb x nb)
+// alone, with factor_panel's operations, but in a loop over the pivots with
+// each lane's row of D in shared memory (factor_panel's unrolled sweep, a
+// different body for each pivot, was slower here and made S3 half again
+// slower beside it; PERF.md).  Pivot p: every lane forms r = 1 / sqrt(D[p][p])
+// itself and its own entry of u^(p) (X[p][l] = D[p][l] r left of p, r, l_l =
+// D[l][p] r below), which goes to UP[p][l]; each row below p then takes
+// D[l][k] -= l_l u_k, its column p restarted from 0, all of its loads issued
+// before its stores.
+__device__ __forceinline__ void wide_factor_panel(float (*D)[kLd], float (*UP)[kLd],
+                                                  float* rr, int nb)
+{
+    const int l = threadIdx.x & 31;
+    for (int p = 0; p < nb; ++p) {
+        const float dpp = D[p][p], left = D[p][l], below = D[l][p];
+        const float r = __fdiv_rn(1.0f, __fsqrt_rn(dpp));
+        const float u = l < p ? __fmul_rn(left, r) : l == p ? r : __fmul_rn(below, r);
+        UP[p][l] = u;
+        if (l == 0) rr[p] = r;
+        __syncwarp();
+        if (l <= p) {
+            D[p][l] = u;
+        } else {
+            float4 d[8], v[8];
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+                d[q] = ld4(&D[l][4 * q]);
+                v[q] = ld4(&UP[p][4 * q]);
+            }
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+                const int c = 4 * q;
+                st4(&D[l][c], __fsub_rn(c == p ? 0.0f : d[q].x, __fmul_rn(u, v[q].x)),
+                    __fsub_rn(c + 1 == p ? 0.0f : d[q].y, __fmul_rn(u, v[q].y)),
+                    __fsub_rn(c + 2 == p ? 0.0f : d[q].z, __fmul_rn(u, v[q].z)),
+                    __fsub_rn(c + 3 == p ? 0.0f : d[q].w, __fmul_rn(u, v[q].w)));
+            }
+        }
+        __syncwarp();
+    }
+}
+
+// S3, one row i below the panel (nb = 32) on the panel's columns, in
+// registers: pivot p's l_i is the row's entry in column p times r_p, kept
+// in UT; then every column c takes l_i u^(p)_c (the entry in column p
+// restarted from 0 first, as the sweep restarts M[i][j]).
+template <class RowOf>
+__device__ __forceinline__ void wide_row_below(const RowOf& row_of, int i, int j0,
+                                               const float (*UP)[kLd], const float* rr,
+                                               float* UT, int ld)
+{
+    float* row = row_of(i) + j0;
+    float m[32];
+    sfor<32>([&](auto c_) { m[decltype(c_)::value] = row[decltype(c_)::value]; });
+    sfor<32>([&](auto p_) {
+        constexpr int p = decltype(p_)::value;
+        const float li = __fmul_rn(m[p], rr[p]);
+        UT[p * ld + i] = li;
+        m[p] = 0.0f;
+        sfor<8>([&](auto q_) {
+            constexpr int q = decltype(q_)::value;
+            const float4 v = ld4(&UP[p][4 * q]);
+            m[4 * q] = __fsub_rn(m[4 * q], __fmul_rn(li, v.x));
+            m[4 * q + 1] = __fsub_rn(m[4 * q + 1], __fmul_rn(li, v.y));
+            m[4 * q + 2] = __fsub_rn(m[4 * q + 2], __fmul_rn(li, v.z));
+            m[4 * q + 3] = __fsub_rn(m[4 * q + 3], __fmul_rn(li, v.w));
+        });
+    });
+    sfor<32>([&](auto c_) { row[decltype(c_)::value] = m[decltype(c_)::value]; });
+}
+
+// S3, one column k < j0 of the panel rows: the forward substitution down
+// the panel (panel_rows_left's, on the triangle): row p of X is the
+// entry times r_p, which then leaves l_c^(p) X[p][k] from each row c > p.
+// X goes into UT, from which wide_rows_out writes the panel rows out.
+template <class RowOf>
+__device__ __forceinline__ void wide_panel_left(const RowOf& row_of, int k, int j0, int nb,
+                                                const float (*UP)[kLd], const float* rr,
+                                                float* UT, int ld)
+{
+    float col[32];
+    sfor<32>([&](auto c_) {
+        constexpr int c = decltype(c_)::value;
+        col[c] = c < nb ? row_of(j0 + c)[k] : 0.0f;
+    });
+    sfor<32>([&](auto p_) {
+        constexpr int p = decltype(p_)::value;
+        if (p < nb) {
+            const float x = __fmul_rn(col[p], rr[p]);
+            col[p] = x;
+            sfor<8>([&](auto q_) {
+                constexpr int q = decltype(q_)::value;
+                if constexpr (4 * q + 3 > p) {
+                    const float4 v = ld4(&UP[p][4 * q]);
+                    const float u[4] = {v.x, v.y, v.z, v.w};
+                    sfor<4>([&](auto e_) {
+                        constexpr int c = 4 * q + decltype(e_)::value;
+                        if constexpr (c > p) col[c] = __fsub_rn(col[c], __fmul_rn(u[c - 4 * q], x));
+                    });
+                }
+            });
+        }
+    });
+    sfor<32>([&](auto c_) {
+        constexpr int c = decltype(c_)::value;
+        if (c < nb) UT[c * ld + k] = col[c];
+    });
+}
+
+// S4, one tile: rows i0 .. i0 + kTR - 1 (below the panel) by columns
+// c0 .. c0 + kTC - 1 (left of the panel or right of it), loaded once,
+// updated by the panel's 32 pivots in ascending order (l_i from UT row p
+// at i, u_k at k: two 16-byte loads of l and one of u a pivot), stored
+// once.  Entries past row n or above the diagonal are neither loaded nor
+// stored.
+template <class RowOf>
+__device__ __forceinline__ void wide_tile(const RowOf& row_of, int i0, int c0, int n,
+                                          const float* UT, int ld)
+{
+    float acc[kTR][kTC];
+    sfor<kTR>([&](auto r_) {
+        constexpr int r = decltype(r_)::value;
+        const int i = i0 + r;
+        sfor<kTC>([&](auto c_) {
+            constexpr int c = decltype(c_)::value;
+            acc[r][c] = (i < n && c0 + c <= i) ? row_of(i)[c0 + c] : 0.0f;
+        });
+    });
+#pragma unroll 4
+    for (int p = 0; p < 32; ++p) {
+        const float* up = UT + p * ld;
+        float li[kTR], uk[kTC];
+        sfor<kTR / 4>([&](auto h_) {
+            constexpr int h = decltype(h_)::value;
+            const float4 v = ld4(up + i0 + 4 * h);
+            li[4 * h] = v.x; li[4 * h + 1] = v.y; li[4 * h + 2] = v.z; li[4 * h + 3] = v.w;
+        });
+        sfor<kTC / 4>([&](auto h_) {
+            constexpr int h = decltype(h_)::value;
+            const float4 v = ld4(up + c0 + 4 * h);
+            uk[4 * h] = v.x; uk[4 * h + 1] = v.y; uk[4 * h + 2] = v.z; uk[4 * h + 3] = v.w;
+        });
+        sfor<kTR>([&](auto r_) {
+            constexpr int r = decltype(r_)::value;
+            sfor<kTC>([&](auto c_) {
+                constexpr int c = decltype(c_)::value;
+                acc[r][c] = __fsub_rn(acc[r][c], __fmul_rn(li[r], uk[c]));
+            });
+        });
+    }
+    sfor<kTR>([&](auto r_) {
+        constexpr int r = decltype(r_)::value;
+        const int i = i0 + r;
+        sfor<kTC>([&](auto c_) {
+            constexpr int c = decltype(c_)::value;
+            if (i < n && c0 + c <= i) row_of(i)[c0 + c] = acc[r][c];
+        });
+    });
+}
+
+// S4 over a set of tiles of rows r0 .. r1 - 1 (r0 a multiple of 32, r1 one
+// too or n), dealt in turn to nt threads from the t-th: each row tile takes
+// the L column tiles left of the panel and, when c0 >= 0, those from column
+// c0 (<= r0) to its diagonal, D0 + 2 (a + 1) for row tile a with D0 = (r0 -
+// c0) / kTC; so C(a) = a (L + D0 + a + 1) tiles come before row tile a.
+template <class RowOf>
+__device__ __forceinline__ void wide_update(const RowOf& row_of, int r0, int r1, int L, int c0,
+                                            int n, const float* UT, int ld, int t, int nt)
+{
+    const int R = (r1 - r0 + kTR - 1) / kTR;
+    if (c0 < 0) {
+        for (int q = t; q < R * L; q += nt)
+            wide_tile(row_of, r0 + kTR * (q / L), kTC * (q % L), n, UT, ld);
+        return;
+    }
+    const int Lp = L + (r0 - c0) / kTC;
+    for (int q = t; q < R * (Lp + R + 1); q += nt) {
+        int a = (int)((sqrtf((float)((Lp + 1) * (Lp + 1) + 4 * q)) - (float)(Lp + 1)) * 0.5f);
+        while (a > 0 && a * (Lp + a + 1) > q) --a;
+        while ((a + 1) * (Lp + a + 2) <= q) ++a;
+        const int b = q - a * (Lp + a + 1);
+        wide_tile(row_of, r0 + kTR * a, b < L ? kTC * b : c0 + kTC * (b - L), n, UT, ld);
+    }
+}
+
+// S1, by one warp: the diagonal block of the panel at j0 (nb pivots) into D,
+// zero above its diagonal and past nb, from the rows row_of gives
+template <class RowOf>
+__device__ __forceinline__ void wide_load_block(const RowOf& row_of, float (*D)[kLd],
+                                                int j0, int nb)
+{
+    const int c = threadIdx.x & 31;
+    for (int r = 0; r < 32; ++r)
+        D[r][c] = (r < nb && c <= r) ? row_of(j0 + r)[j0 + c] : 0.0f;
+    __syncwarp();
+}
+
+// The panel rows j0 .. j0 + nb - 1 are final: their X left of the panel,
+// from UT, and (kShared) the rest of each row with its strictly upper part
+// zero, into out, by nt threads from the t-th (nt a multiple of 32)
+template <bool kShared, class RowOf>
+__device__ __forceinline__ void wide_rows_out(const RowOf& row_of, float* O, const float* UT,
+                                              int ld, int j0, int nb, int n, int t, int nt)
+{
+    for (int r = t >> 5; r < nb; r += nt >> 5) {
+        const int i = j0 + r;
+        for (int k = t & 31; k < (kShared ? n : j0); k += 32)
+            O[(size_t)i * n + k] = k < j0 ? UT[r * ld + k] : k <= i ? row_of(i)[k] : 0.0f;
+    }
+}
+
+// 240 < n <= kMaxN: the blocked sweep, one block of kWideThreads per
+// matrix, the triangle in shared memory (kShared) or in place in out.  Warp
+// 0 runs each panel's S1 and S2 beside the rest of the block: the first
+// panel's beside the load, the next panel's beside this panel's S4.
 template <bool kShared>
 __global__ void __launch_bounds__(kWideThreads, 1)
 chol_tri_inv_wide_kernel(const float* __restrict__ H, float* out, int n)
 {
     extern __shared__ __align__(16) float smem[];
-    float* const P = smem + 2 * n;   // the packed triangle, row i at i (i + 1) / 2
-    const int w = threadIdx.x >> 5, l = threadIdx.x & 31, nw = blockDim.x >> 5;
+    float (*const D)[kLd] = reinterpret_cast<float (*)[kLd]>(smem);
+    float (*const UP)[kLd] = reinterpret_cast<float (*)[kLd]>(smem + 32 * kLd);
+    const int ld = wide_ld(n);
+    float* const UT = smem + 64 * kLd;
+    float* const rr = UT + 32 * ld;
+    float* const P = rr + 32;      // the packed triangle, row i at i (i + 1) / 2
+    const int tid = threadIdx.x, w = tid >> 5;
     const size_t base = (size_t)blockIdx.x * (size_t)n * (size_t)n;
     const float* A = H + base;
     float* O = out + base;
-    auto row_of = [&](int i) -> float* {
+    auto row_of = [=](int i) -> float* {
         return kShared ? P + (size_t)i * (i + 1) / 2 : O + (size_t)i * n;
     };
 
-    // the lower triangle in; in place, the strictly upper part of out is
-    // zeroed here and never touched again.  Pivot 0's v is column 0.
-    for (int i = w; i < n; i += nw) {
-        float* row = row_of(i);
-        for (int k = l; k < n; k += 32) {
-            const float x = k <= i ? A[(size_t)i * n + k] : 0.0f;
-            if (k <= i || !kShared) row[k] = x;
-            if (k == 0) smem[i] = x;
+    if (w == 0) {
+        // ---- S1, S2 of the first panel, from the input ------------------
+        wide_load_block([=](int i) { return A + (size_t)i * n; }, D, 0, 32);
+        wide_factor_panel(D, UP, rr, 32);
+    } else {
+        // the lower triangle in; in place, the strictly upper part of out
+        // is zeroed here and never touched again.  UT starts at 0 (its
+        // padding is read by the last row tile, and never reaches a stored
+        // entry).
+        for (int i = w - 1; i < n; i += kWideThreads / 32 - 1) {
+            float* row = row_of(i);
+            for (int k = tid & 31; k < n; k += 32) {
+                if (k <= i) row[k] = A[(size_t)i * n + k];
+                else if (!kShared) row[k] = 0.0f;
+            }
         }
+        for (int e = tid - 32; e < 32 * ld; e += kWideThreads - 32) UT[e] = 0.0f;
     }
     __syncthreads();
 
-    for (int j = 0; j < n; ++j) {
-        const float* vc = smem + (j & 1) * n;        // pivot j's operands
-        float* vn = smem + ((j + 1) & 1) * n;        // pivot j + 1's
-        const float r = __fdiv_rn(1.0f, __fsqrt_rn(vc[j]));   // NaN if not PD
-        for (int i = j + w; i < n; i += nw) {
-            float* row = row_of(i);
-            if (i == j) {
-                // row j of X is final: u_k (k < j) and r
-                for (int k = l; k <= j; k += 32)
-                    row[k] = k < j ? __fmul_rn(vc[k], r) : r;
-                continue;
-            }
-            const float li = __fmul_rn(vc[i], r);
-            for (int k = l; k <= i; k += 32) {
-                const float uk = k == j ? r : __fmul_rn(vc[k], r);
-                const float x = __fsub_rn(k == j ? 0.0f : row[k], __fmul_rn(li, uk));
-                row[k] = x;
-                if (i == j + 1) vn[k] = x;            // row j + 1
-                else if (k == j + 1) vn[i] = x;       // column j + 1
-            }
+    int j0 = 0;
+    for (;; j0 += 32) {
+        const int nb = n - j0 < 32 ? n - j0 : 32;
+        const int j1 = j0 + nb;
+        const int L = j0 / kTC;     // column tiles left of the panel
+
+        // ---- S3: the panel's block of X back; each row below on the
+        // panel's columns, each column left of the panel down the panel
+        // rows, one a thread -----------------------------------------------
+        for (int e = tid; e < 32 * 32; e += kWideThreads) {
+            const int r = e >> 5, c = e & 31;
+            if (r < nb && c <= r) row_of(j0 + r)[j0 + c] = D[r][c];
+        }
+        for (int u = tid; u < n - nb; u += kWideThreads) {
+            if (u < j0) wide_panel_left(row_of, u, j0, nb, UP, rr, UT, ld);
+            else wide_row_below(row_of, j1 + u - j0, j0, UP, rr, UT, ld);
+        }
+        __syncthreads();
+        if (j1 == n) break;
+
+        // ---- S4, the deferred update of the rows below, beside the next
+        // panel (j1 .. j2): warp 0 updates its diagonal block, then runs
+        // its S1 and S2; the warps outside warp 0's scheduler update the
+        // rest; warps 4, 8, ... (which share it) write this panel's rows
+        // out ---------------------------------------------------------------
+        const int j2 = n - j1 < 32 ? n : j1 + 32;
+        if (w == 0) {
+            wide_update(row_of, j1, j2, 0, j1, n, UT, ld, tid, 32);
+            __syncwarp();
+            wide_load_block(row_of, D, j1, j2 - j1);
+            wide_factor_panel(D, UP, rr, j2 - j1);
+        } else if (w % 4 != 0) {
+            const int t = (w - w / 4 - 1) * 32 + (tid & 31), nt = kWideThreads / 4 * 3;
+            wide_update(row_of, j1, j2, L, -1, n, UT, ld, t, nt);
+            if (j2 < n) wide_update(row_of, j2, n, L, j1, n, UT, ld, t, nt);
+        } else {
+            wide_rows_out<kShared>(row_of, O, UT, ld, j0, nb, n, (w / 4 - 1) * 32 + (tid & 31),
+                                   kWideThreads / 4 - 32);
         }
         __syncthreads();
     }
-
-    if (kShared) {
-        for (int i = w; i < n; i += nw) {
-            const float* row = row_of(i);
-            for (int k = l; k < n; k += 32)
-                O[(size_t)i * n + k] = k <= i ? row[k] : 0.0f;
-        }
-    }
+    wide_rows_out<kShared>(row_of, O, UT, ld, j0, n - j0, n, tid, kWideThreads);
 }
 
 // n = 1: one thread a matrix
@@ -502,9 +771,13 @@ extern "C" int chol_tri_inv_max_n() { return kMaxN; }
 // Returns the CUDA error (0 on success).
 extern "C" int chol_tri_inv_prepare()
 {
-    return (int)cudaFuncSetAttribute(chol_tri_inv_wide_kernel<true>,
+    const cudaError_t e = cudaFuncSetAttribute(chol_tri_inv_wide_kernel<true>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)wide_smem_bytes(kSmemMaxN, true));
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaFuncSetAttribute(chol_tri_inv_wide_kernel<false>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)wide_smem_bytes(kSmemMaxN, true));
+                                     (int)wide_smem_bytes(kMaxN, false));
 }
 
 // H, out: (G, n, n) contiguous f32 on the device; stream: a cudaStream_t.

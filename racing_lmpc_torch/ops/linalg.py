@@ -223,8 +223,11 @@ def chol_tri_inv(H: Tensor) -> Tensor:
     the plain version; a CUDA tensor launches the hand-written kernel
     (``csrc/chol_tri_inv.cu``) or raises — there is no fall back.
     ``chol_tri_inv.launches`` counts the kernel launches.  The kernel takes
-    n <= ``chol_max_n()`` (1024; register variants up to 240, a wide variant
-    in shared memory or L2 above) and raises ``ValueError`` above it.
+    n <= ``chol_max_n()`` (1024) and raises ``ValueError`` above it: register
+    variants up to n = 240; above, a wide variant that runs the same sweep
+    in panels of 32 pivots with a register-tiled deferred update, one block
+    of 16 warps a matrix, its triangle in shared memory up to n = 302 and in
+    place in ``out`` (resident in L2) above.
 
     The kernel replaces the TPU kernel ``chol_tri_inv_fused``
     (``racing_lmpc_tpu/ops/pallas_linalg.py:312-368``).  On an H100 at the
@@ -234,7 +237,9 @@ def chol_tri_inv(H: Tensor) -> Tensor:
     (n^3/3 for the factor and n^3/3 for the inverse: 1.7 us at 67 TFLOP/s),
     so bytes bound it; the dependent chain of its n pivots sets its time
     (see the kernel source).  At the double-track LMPC's (32, 275, 275) the
-    444 MFLOP bound it (6.6 us).
+    444 MFLOP bound it (6.6 us); at batch 1 one SM holds the matrix, and
+    its floor is the 2/3 n^3 separately rounded multiplies and subtracts at
+    one SM's f32 issue rate (0.0546 ms at n = 275 on an H100 SXM at 700 W).
     """
     if H.dtype != torch.float32:
         raise TypeError(f"chol_tri_inv takes float32, got {H.dtype}")

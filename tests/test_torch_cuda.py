@@ -58,16 +58,17 @@ def test_chol_tri_inv_kernel_matches_plain(cuda, n):
 
 @pytest.mark.parametrize("G", [1, 32])
 @pytest.mark.parametrize("n", [1, 2, 28, 31, 32, 33, 40, 58, 73, 87, 96, 97, 175, 216,
-                               225, 240, 241, 244, 256, 274, 275, 320, 336, 337, 400,
-                               512, 1024])
+                               225, 240, 241, 244, 256, 274, 275, 302, 303, 320, 336, 337,
+                               400, 512, 1024])
 def test_chol_tri_inv_kernel_matches_sweep_bit_for_bit(cuda, n, G):
     # the kernel and its step mirror round every operation alike; the sizes
     # take in the panel edges (31-33, 96/97 where two matrices stop sharing
     # an SM), the QP sizes of the nonlinear-row paths (28, 40, 58, 73), the
     # last register variant (225-240: its last panel holds 2 of 4 row
     # tiles), and the wide variant: one past 240, the double-track LMPC's
-    # 244 and 274-275, the last size of the triangle in shared memory (336)
-    # and the first in device memory (337), up to the limit
+    # 244 and 274-275, the last size of the triangle in shared memory (302)
+    # and the first in device memory (303), the earlier edge (336, 337), up
+    # to the limit
     H = torch.as_tensor(spd(np.random.default_rng(1000 + n), G, n), device=cuda)
     K = tl.chol_tri_inv(H)
     S = tl.chol_tri_inv_sweep(H)
