@@ -61,18 +61,28 @@
 // n = 1 (the IPM's Schur block) takes a one-thread-per-matrix kernel,
 // 1 / sqrt(h).
 //
-// Wide variant, 240 < n <= 1024 (kMaxN; the double-track LMPC's QPs at the
-// shipped learning horizons, n = 244 and 275): the same blocked sweep in
-// panels of 32 pivots, one block of 16 warps (kWideThreads) a matrix.  The
-// lower triangle lives packed in dynamic shared memory up to n = 302
-// (kSmemMaxN: n (n + 1) / 2 floats beside D, UP, rr and UT, 231,268 B at
-// n = 302, under the 232,448 B a block may take; chol_tri_inv_prepare()
-// grants both instances their shared memory once a device) and above that
-// in place in the output buffer in device memory (4 MB at n = 1024,
-// resident in the 50 MB L2), where each entry is read and written once a
-// panel.  UT (32 x n) holds each pivot's u over every column: the l_k of
-// the rows below the panel and the panel rows' X left of it.  For each
-// panel:
+// Wide variant, n > 240 (the double-track LMPC's QPs at the shipped
+// learning horizons, n = 244 and 275, and every larger n the JAX function
+// takes): the same blocked sweep in panels of 32 pivots, one block of 16
+// warps (kWideThreads) a matrix.  The lower triangle lives packed in
+// dynamic shared memory up to n = 302 (kSmemMaxN: n (n + 1) / 2 floats
+// beside D, UP, rr and UT, 231,268 B at n = 302, under the 232,448 B a
+// block may take; chol_tri_inv_prepare() grants the instances their shared
+// memory once a device) and above that in place in the output buffer in
+// device memory (4 MB at n = 1024, 16 MB at n = 2048, resident in the
+// 50 MB L2), where each entry is read and written once a panel.  UT
+// (32 x wide_ld(n)) holds each pivot's u over every column: the l_k of the
+// rows below the panel and the panel rows' X left of it.  It lives in
+// shared memory up to n = 1736 (kUTSmemMaxN: 231,552 B) and above that in
+// a workspace of 32 wide_ld(n) floats a matrix (256 KB at n = 2048) that
+// the wrapper allocates from PyTorch's allocator on the launch's stream;
+// its entries are read from L1 and L2 there.  Only where UT lives changes:
+// the stages, their order and every operation are the same in the three
+// instances (triangle and UT in shared memory; triangle in out, UT in
+// shared memory; both in device memory), so the argument below holds for
+// all of them.  Every offset into a matrix, its triangle or the batch is
+// formed in 64 bits (G n^2 = 2.1e9 at (512, 2048, 2048)); no size limit
+// but the memory the buffers take.  For each panel:
 //   S1, S2  warp 0 loads the diagonal block and sweeps it alone
 //           (wide_factor_panel, a loop over the pivots);
 //   S3      each row below takes the panel's pivots on the panel's columns
@@ -126,9 +136,9 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxN = 1024;      // the largest n the kernel takes
 constexpr int kRegMaxN = 240;    // the register variants' largest n
 constexpr int kSmemMaxN = 302;   // the wide variant's triangle in shared memory
+constexpr int kUTSmemMaxN = 1736;   // the wide variant's UT in shared memory
 constexpr int kSmemOptin = 232448;   // the shared memory a block may take
 constexpr int kWideThreads = 512;
 constexpr int kTR = 8, kTC = 4;      // the wide variant's S4 tile, rows x columns
@@ -420,21 +430,23 @@ chol_tri_inv_panel_kernel(const float* __restrict__ H, float* __restrict__ out, 
 // The wide variant's shared memory, in floats from the start of the dynamic
 // buffer: D and UP (the panel's diagonal block and its u on the panel, as
 // the register variants'), UT (32 x wide_ld(n), row p: u^(p) over every
-// column k, the l_k below the panel and row p of X left of it), rr, and the
-// packed lower triangle when it is kept there.  UT's rows run to n rounded
-// up to 8, so the last row tile reads inside them.
+// column k, the l_k below the panel and row p of X left of it) when it is
+// kept there, rr, and the packed lower triangle when it is kept there.  UT's
+// rows run to n rounded up to 8, so the last row tile reads inside them.
 __host__ __device__ constexpr int wide_ld(int n) { return (n + 7) & ~7; }
 
-__host__ __device__ constexpr size_t wide_smem_bytes(int n, bool in_shared)
+__host__ __device__ constexpr size_t wide_smem_bytes(int n, bool tri_shared, bool ut_shared)
 {
-    return sizeof(float) * (2 * 32 * kLd + 32 * (size_t)wide_ld(n) + 32
-                            + (in_shared ? (size_t)n * (n + 1) / 2 : 0));
+    return sizeof(float) * (2 * 32 * kLd + 32 + (ut_shared ? 32 * (size_t)wide_ld(n) : 0)
+                            + (tri_shared ? (size_t)n * (n + 1) / 2 : 0));
 }
 
-static_assert(wide_smem_bytes(kSmemMaxN, true) <= kSmemOptin &&
-              wide_smem_bytes(kSmemMaxN + 1, true) > kSmemOptin,
+static_assert(wide_smem_bytes(kSmemMaxN, true, true) <= kSmemOptin &&
+              wide_smem_bytes(kSmemMaxN + 1, true, true) > kSmemOptin,
               "kSmemMaxN is the last n whose triangle fits in shared memory");
-static_assert(wide_smem_bytes(kMaxN, false) <= kSmemOptin, "UT fits at kMaxN");
+static_assert(wide_smem_bytes(kUTSmemMaxN, false, true) <= kSmemOptin &&
+              wide_smem_bytes(kUTSmemMaxN + 1, false, true) > kSmemOptin,
+              "kUTSmemMaxN is the last n whose UT fits in shared memory");
 static_assert(kTR == 2 * kTC, "the trailing tiles' count below assumes kTR = 2 kTC");
 
 // S2 of the wide variant: one warp sweeps the diagonal block D (nb x nb)
@@ -648,20 +660,23 @@ __device__ __forceinline__ void wide_rows_out(const RowOf& row_of, float* O, con
     }
 }
 
-// 240 < n <= kMaxN: the blocked sweep, one block of kWideThreads per
-// matrix, the triangle in shared memory (kShared) or in place in out.  Warp
-// 0 runs each panel's S1 and S2 beside the rest of the block: the first
-// panel's beside the load, the next panel's beside this panel's S4.
-template <bool kShared>
+// n > kRegMaxN: the blocked sweep, one block of kWideThreads per matrix,
+// the triangle in shared memory (kShared) or in place in out, UT in shared
+// memory or (kUTGlobal) in the workspace ut_ws, 32 wide_ld(n) floats a
+// matrix.  Warp 0 runs each panel's S1 and S2 beside the rest of the
+// block: the first panel's beside the load, the next panel's beside this
+// panel's S4.
+template <bool kShared, bool kUTGlobal>
 __global__ void __launch_bounds__(kWideThreads, 1)
-chol_tri_inv_wide_kernel(const float* __restrict__ H, float* out, int n)
+chol_tri_inv_wide_kernel(const float* __restrict__ H, float* out, float* ut_ws, int n)
 {
+    static_assert(!(kShared && kUTGlobal), "the triangle in shared memory keeps UT there");
     extern __shared__ __align__(16) float smem[];
     float (*const D)[kLd] = reinterpret_cast<float (*)[kLd]>(smem);
     float (*const UP)[kLd] = reinterpret_cast<float (*)[kLd]>(smem + 32 * kLd);
     const int ld = wide_ld(n);
-    float* const UT = smem + 64 * kLd;
-    float* const rr = UT + 32 * ld;
+    float* const UT = kUTGlobal ? ut_ws + (size_t)blockIdx.x * 32 * ld : smem + 64 * kLd;
+    float* const rr = kUTGlobal ? smem + 64 * kLd : UT + 32 * ld;
     float* const P = rr + 32;      // the packed triangle, row i at i (i + 1) / 2
     const int tid = threadIdx.x, w = tid >> 5;
     const size_t base = (size_t)blockIdx.x * (size_t)n * (size_t)n;
@@ -763,32 +778,36 @@ Launch variant(int panels, std::integer_sequence<int, P...>)
 
 }  // namespace
 
-// The largest n the kernel takes; the wrapper reads it from here.
-extern "C" int chol_tri_inv_max_n() { return kMaxN; }
-
-// Lets the wide variant take its shared memory (above the 48 KB default) on
-// the current device; call once per device before the first launch there.
-// Returns the CUDA error (0 on success).
-extern "C" int chol_tri_inv_prepare()
+// Floats of device workspace a matrix of size n needs (the wrapper
+// allocates G times this; 0 where UT stays in shared memory).
+extern "C" long long chol_tri_inv_workspace_floats(int n)
 {
-    const cudaError_t e = cudaFuncSetAttribute(chol_tri_inv_wide_kernel<true>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)wide_smem_bytes(kSmemMaxN, true));
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaFuncSetAttribute(chol_tri_inv_wide_kernel<false>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)wide_smem_bytes(kMaxN, false));
+    return n > kUTSmemMaxN ? 32LL * wide_ld(n) : 0;
 }
 
-// H, out: (G, n, n) contiguous f32 on the device; stream: a cudaStream_t.
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue, without launching, for n > kMaxN (there is no
-// variant to launch).
-extern "C" int chol_tri_inv_f32(const float* H, float* out, int G, int n,
+// Lets the wide variant's instances take their shared memory (above the
+// 48 KB default) on the current device; call once per device before the
+// first launch there.  Returns the CUDA error (0 on success).
+extern "C" int chol_tri_inv_prepare()
+{
+    const cudaError_t e = cudaFuncSetAttribute(chol_tri_inv_wide_kernel<true, false>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)wide_smem_bytes(kSmemMaxN, true, true));
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaFuncSetAttribute(chol_tri_inv_wide_kernel<false, false>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)wide_smem_bytes(kUTSmemMaxN, false, true));
+}
+
+// H, out: (G, n, n) contiguous f32 on the device; ws: the workspace of
+// G chol_tri_inv_workspace_floats(n) floats (null where that is 0); stream:
+// a cudaStream_t.  Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue, without launching, when a workspace
+// is needed and ws is null.
+extern "C" int chol_tri_inv_f32(const float* H, float* out, int G, int n, float* ws,
                                 void* stream)
 {
     if (G <= 0 || n <= 0) return 0;
-    if (n > kMaxN) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     if (n == 1) {
         chol_tri_inv_1x1_kernel<<<(G + 255) / 256, 256, 0, s>>>(H, out, G);
@@ -796,11 +815,15 @@ extern "C" int chol_tri_inv_f32(const float* H, float* out, int G, int n,
         constexpr int kPanels = (kRegMaxN + 31) / 32;
         variant((n + 31) / 32, std::make_integer_sequence<int, kPanels>())(H, out, G, n, s);
     } else if (n <= kSmemMaxN) {
-        chol_tri_inv_wide_kernel<true><<<G, kWideThreads, wide_smem_bytes(n, true), s>>>(
-            H, out, n);
+        chol_tri_inv_wide_kernel<true, false>
+            <<<G, kWideThreads, wide_smem_bytes(n, true, true), s>>>(H, out, nullptr, n);
+    } else if (n <= kUTSmemMaxN) {
+        chol_tri_inv_wide_kernel<false, false>
+            <<<G, kWideThreads, wide_smem_bytes(n, false, true), s>>>(H, out, nullptr, n);
     } else {
-        chol_tri_inv_wide_kernel<false><<<G, kWideThreads, wide_smem_bytes(n, false), s>>>(
-            H, out, n);
+        if (ws == nullptr) return (int)cudaErrorInvalidValue;
+        chol_tri_inv_wide_kernel<false, true>
+            <<<G, kWideThreads, wide_smem_bytes(n, false, false), s>>>(H, out, ws, n);
     }
     return (int)cudaGetLastError();
 }

@@ -71,6 +71,43 @@
 //    No integer division by b, no gather through shared memory.
 // Shared memory is under 2 KB a block, static; no attribute is set at a
 // launch.
+//
+// Wide variants, b > 64 (the JAX function takes any b; none of the
+// repo's paths calls it).  The matrix no longer fits in registers, so one
+// block a matrix keeps the whole augmented matrix (b rows of 2b columns,
+// rows 16-byte aligned at wide_ld(b) floats) in memory and runs the same
+// steps with three barriers a step:
+//   A  each thread takes its rows (i = tid, tid + T, ...) in ascending
+//      order: it reads f_i = M[i][k] into f (so f is read before the step
+//      writes any entry), forms the score as above and keeps its best key,
+//      the lower row on a tie; then in each warp __reduce_max_sync of the
+//      keys and __reduce_min_sync of the rows holding the maximum, one
+//      64-bit (key, ~row) slot a warp; a barrier; every thread takes the
+//      largest slot, so NaN wins, then the larger score, then the lower row;
+//   B  every thread divides its columns of the pivot row by d = f_p into
+//      prow (div_rn) and records p; a barrier;
+//   C  each warp takes its rows, 16-byte loads and stores along the row:
+//      row p becomes prow, every other row M[i][c] - f_i prow[c], the
+//      product and the difference rounded on their own; a barrier.
+// Every entry of the augmented matrix is kept and updated, so an inf or
+// NaN f leaves the plain version's NaN in the identity half too.  At the
+// end row k of the inverse is the right half of the row that pivoted at
+// step k, gathered with coalesced stores.
+//   Shared memory, 64 < b <= kSmemMaxB (168): the augmented matrix, prow,
+//     f, the pivots and the used flags in dynamic shared memory, 8 b^2
+//     bytes and a little more (229,408 B at b = 168 under the 232,448 B a
+//     block may take; gj_inverse_prepare() grants it once a device), 512
+//     threads.  A step moves the matrix through shared memory once (a
+//     load and a store an entry), so shared-memory bandwidth, at one block
+//     an SM above b = 119, bounds it.
+//   Device memory, b > kSmemMaxB: all of it in a workspace of
+//     gj_inverse_workspace_floats(b) floats a matrix that the wrapper
+//     allocates from PyTorch's allocator on the launch's stream, 64-bit
+//     offsets throughout, 1024 threads.  A step reads and writes the
+//     matrix once (8 b^2 bytes): at small G one SM's share of the L2 and
+//     memory bandwidth bounds it, far above the card's.  A cluster of
+//     blocks a matrix would spread a step over several SMs; not done.
+// Both are one kernel template; the size classes above are untouched.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,8 +115,10 @@
 
 namespace {
 
-constexpr int kMaxB = 64;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRegMaxB = 64;         // the register classes' largest b
+constexpr int kSmemMaxB = 168;       // the wide variant's matrix in shared memory
+constexpr int kSmemOptin = 232448;   // the shared memory a block may take
 
 // threads a row (T), warps a matrix (WPM), matrices a block (MPB)
 template <int B> struct Class;
@@ -241,6 +280,121 @@ gj_inverse_kernel(const float* __restrict__ A, float* __restrict__ out,
     }
 }
 
+// The wide variants' row stride: 2b columns rounded up to 16 bytes
+__host__ __device__ constexpr int wide_ld(int b) { return (2 * b + 3) & ~3; }
+
+// Floats a matrix takes beside the augmented matrix: prow (wide_ld), f, the
+// pivots and the used flags (b each), rounded up to 16 bytes
+__host__ __device__ constexpr size_t wide_extra(int b)
+{
+    return (size_t)wide_ld(b) + (((size_t)3 * b + 3) & ~(size_t)3);
+}
+
+// The 64-bit (key, ~row) slots of the argmax, one a warp, at most 32 warps
+constexpr int kSlotBytes = 32 * 8;
+
+__host__ __device__ constexpr size_t wide_smem_bytes(int b)
+{
+    return kSlotBytes + sizeof(float) * ((size_t)b * wide_ld(b) + wide_extra(b));
+}
+
+static_assert(wide_smem_bytes(kSmemMaxB) <= kSmemOptin &&
+              wide_smem_bytes(kSmemMaxB + 1) > kSmemOptin,
+              "kSmemMaxB is the last b whose augmented matrix fits in shared memory");
+
+// b > 64, one block of T threads a matrix: the augmented matrix and its
+// vectors in dynamic shared memory (kShared) or in the workspace ws,
+// (b wide_ld(b) + wide_extra(b)) floats a matrix.
+template <bool kShared>
+__global__ void __launch_bounds__(kShared ? 512 : 1024, 1)
+gj_inverse_wide_kernel(const float* __restrict__ A, float* __restrict__ out,
+                       int* __restrict__ piv_out, float* ws, int b)
+{
+    constexpr int T = kShared ? 512 : 1024, NW = T / 32;
+    extern __shared__ __align__(16) unsigned char wide_smem[];
+    __shared__ unsigned long long slot_g[kShared ? 1 : NW];
+    unsigned long long* const slot =
+        kShared ? reinterpret_cast<unsigned long long*>(wide_smem) : slot_g;
+    const int ld = wide_ld(b);
+    const size_t g = blockIdx.x;
+    float* const M = kShared
+        ? reinterpret_cast<float*>(wide_smem + kSlotBytes)
+        : ws + g * ((size_t)b * ld + wide_extra(b));
+    float* const prow = M + (size_t)b * ld;
+    float* const f = prow + ld;
+    int* const piv = reinterpret_cast<int*>(f + b);
+    int* const used = piv + b;
+    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+    const int nv = ld / 4;
+
+    // [A | I], and zero in the padding columns of every row and of prow
+    const float* const a = A + g * b * b;
+    for (int i = w; i < b; i += NW) {
+        float* const row = M + (size_t)i * ld;
+        for (int c = lane; c < ld; c += 32)
+            row[c] = c < b ? a[(size_t)i * b + c] : (c - b == i ? 1.0f : 0.0f);
+    }
+    for (int c = 2 * b + tid; c < ld; c += T) prow[c] = 0.0f;
+    for (int i = tid; i < b; i += T) used[i] = 0;
+    __syncthreads();
+
+    for (int k = 0; k < b; ++k) {
+        // ---- A: f = column k; the argmax of the scores ------------------
+        unsigned bk = 0u, br = 0xffffffffu;
+        for (int i = tid; i < b; i += T) {
+            const float c = M[(size_t)i * ld + k];
+            f[i] = c;
+            const unsigned key = order_key(__fsub_rn(fabsf(c), used[i] ? 1e30f : 0.0f));
+            if (key > bk) { bk = key; br = (unsigned)i; }
+        }
+        const unsigned kmax = __reduce_max_sync(kFull, bk);
+        const unsigned rmin = __reduce_min_sync(kFull, bk == kmax ? br : 0xffffffffu);
+        if (lane == 0) slot[w] = ((unsigned long long)kmax << 32) | (0xffffffffu - rmin);
+        __syncthreads();
+        unsigned long long best = slot[0];
+        for (int v = 1; v < NW; ++v) best = best > slot[v] ? best : slot[v];
+        const int p = (int)(0xffffffffu - (unsigned)best);
+
+        // ---- B: the scaled pivot row -------------------------------------
+        const float d = f[p];
+        const float* const pr = M + (size_t)p * ld;
+        for (int c = tid; c < 2 * b; c += T) prow[c] = div_rn(pr[c], d);
+        if (tid == 0) { used[p] = 1; piv[k] = p; }
+        __syncthreads();
+
+        // ---- C: every row takes the step ---------------------------------
+        for (int i = w; i < b; i += NW) {
+            float* const row = M + (size_t)i * ld;
+            if (i == p) {
+                for (int v = lane; v < nv; v += 32)
+                    *reinterpret_cast<float4*>(row + 4 * v) =
+                        *reinterpret_cast<const float4*>(prow + 4 * v);
+            } else {
+                const float fi = f[i];
+                for (int v = lane; v < nv; v += 32) {
+                    float4 x = *reinterpret_cast<const float4*>(row + 4 * v);
+                    const float4 u = *reinterpret_cast<const float4*>(prow + 4 * v);
+                    x.x = __fsub_rn(x.x, __fmul_rn(fi, u.x));
+                    x.y = __fsub_rn(x.y, __fmul_rn(fi, u.y));
+                    x.z = __fsub_rn(x.z, __fmul_rn(fi, u.z));
+                    x.w = __fsub_rn(x.w, __fmul_rn(fi, u.w));
+                    *reinterpret_cast<float4*>(row + 4 * v) = x;
+                }
+            }
+        }
+        __syncthreads();
+    }
+
+    // row k of the inverse is the right half of the row that pivoted at step k
+    float* const o = out + g * b * b;
+    for (int k = w; k < b; k += NW) {
+        const int r = piv[k];
+        const float* const src = M + (size_t)r * ld + b;
+        for (int c = lane; c < b; c += 32) o[(size_t)k * b + c] = src[c];
+        if (piv_out != nullptr && lane == 0) piv_out[g * b + k] = r;
+    }
+}
+
 template <int B>
 int launch(const float* A, float* out, int* piv, int G, int b, cudaStream_t stream)
 {
@@ -254,19 +408,42 @@ int launch(const float* A, float* out, int* piv, int G, int b, cudaStream_t stre
 
 }  // namespace
 
-// The largest b the kernel takes; the wrapper reads it from here.
-extern "C" int gj_inverse_max_b() { return kMaxB; }
+// Floats of device workspace a matrix of size b needs (the wrapper
+// allocates G times this; 0 where the matrix stays in registers or in
+// shared memory).
+extern "C" long long gj_inverse_workspace_floats(int b)
+{
+    return b > kSmemMaxB ? (long long)b * wide_ld(b) + (long long)wide_extra(b) : 0;
+}
+
+// Lets the shared-memory wide variant take its shared memory (above the
+// 48 KB default) on the current device; call once per device before the
+// first launch there.  Returns the CUDA error (0 on success).
+extern "C" int gj_inverse_prepare()
+{
+    return (int)cudaFuncSetAttribute(gj_inverse_wide_kernel<true>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)wide_smem_bytes(kSmemMaxB));
+}
 
 // A, out: (G, b, b) contiguous f32 on the device; piv: (G, b) int32 pivot
-// rows (the row that pivoted at step k), or null; stream: a cudaStream_t.
-// Returns cudaGetLastError() after the launch (0 on success).
+// rows (the row that pivoted at step k), or null; ws: the workspace of
+// G gj_inverse_workspace_floats(b) floats (null where that is 0); stream:
+// a cudaStream_t.  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int gj_inverse_f32(const float* A, float* out, int* piv, int G, int b,
-                              void* stream)
+                              float* ws, void* stream)
 {
     if (G <= 0 || b <= 0) return 0;
-    if (b > kMaxB) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     if (b <= 16) return launch<16>(A, out, piv, G, b, s);
     if (b <= 32) return launch<32>(A, out, piv, G, b, s);
-    return launch<64>(A, out, piv, G, b, s);
+    if (b <= kRegMaxB) return launch<64>(A, out, piv, G, b, s);
+    if (b <= kSmemMaxB) {
+        gj_inverse_wide_kernel<true><<<G, 512, wide_smem_bytes(b), s>>>(A, out, piv, nullptr, b);
+    } else {
+        if (ws == nullptr) return (int)cudaErrorInvalidValue;
+        gj_inverse_wide_kernel<false><<<G, 1024, 0, s>>>(A, out, piv, ws, b);
+    }
+    return (int)cudaGetLastError();
 }

@@ -200,19 +200,28 @@ def _kernel_fn(device_index: int):
                            f"failed: CUDA error {err}")
     fn = lib.chol_tri_inv_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
-def chol_max_n() -> int:
-    """The largest n the kernel takes, as its source states it (``kMaxN``
-    in ``csrc/chol_tri_inv.cu``); builds the kernel if needed."""
-    fn = _kernels.load("chol_tri_inv").chol_tri_inv_max_n
-    fn.argtypes = []
-    fn.restype = ctypes.c_int
-    return int(fn())
+def _workspace_floats(kernel: str, size: int) -> int:
+    """Floats of device workspace a matrix of ``size`` needs, as the
+    kernel's source states it (``<kernel>_workspace_floats``); 0 where the
+    kernel keeps everything on chip."""
+    fn = getattr(_kernels.load(kernel), f"{kernel}_workspace_floats")
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return int(fn(size))
+
+
+def _workspace(kernel: str, G: int, size: int, like: Tensor) -> Tensor | None:
+    """The kernel's workspace for G matrices, from PyTorch's allocator on
+    the current stream (its out-of-memory error, if any, is PyTorch's), or
+    None where it needs none."""
+    floats = _workspace_floats(kernel, size)
+    return torch.empty(G * floats, dtype=torch.float32, device=like.device) if floats else None
 
 
 def chol_tri_inv(H: Tensor) -> Tensor:
@@ -223,11 +232,13 @@ def chol_tri_inv(H: Tensor) -> Tensor:
     the plain version; a CUDA tensor launches the hand-written kernel
     (``csrc/chol_tri_inv.cu``) or raises — there is no fall back.
     ``chol_tri_inv.launches`` counts the kernel launches.  The kernel takes
-    n <= ``chol_max_n()`` (1024) and raises ``ValueError`` above it: register
-    variants up to n = 240; above, a wide variant that runs the same sweep
-    in panels of 32 pivots with a register-tiled deferred update, one block
-    of 16 warps a matrix, its triangle in shared memory up to n = 302 and in
-    place in ``out`` (resident in L2) above.
+    every n whose buffers fit on the card: register variants up to n = 240;
+    above, a wide variant that runs the same sweep in panels of 32 pivots
+    with a register-tiled deferred update, one block of 16 warps a matrix,
+    its triangle in shared memory up to n = 302 and in place in ``out``
+    (resident in L2) above, the panel's rows ``UT`` (32 x n) in shared
+    memory up to n = 1736 and above that in a workspace of 128 n bytes a
+    matrix, allocated here.
 
     The kernel replaces the TPU kernel ``chol_tri_inv_fused``
     (``racing_lmpc_tpu/ops/pallas_linalg.py:312-368``).  On an H100 at the
@@ -252,15 +263,15 @@ def chol_tri_inv(H: Tensor) -> Tensor:
     if H.device.type != "cuda":
         raise ValueError(f"chol_tri_inv runs on cpu or cuda, not {H.device}")
     n = H.shape[-1]
-    if n > chol_max_n():
-        raise ValueError(f"chol_tri_inv: the kernel takes n <= {chol_max_n()}, got {n}")
     G = H.numel() // (n * n) if n else 0
     out = torch.empty_like(H)
     if G == 0 or n == 0:
         return out
     index = H.device.index if H.device.index is not None else torch.cuda.current_device()
     with torch.cuda.device(index):
+        ws = _workspace("chol_tri_inv", G, n, H)
         err = _kernel_fn(index)(H.data_ptr(), out.data_ptr(), G, n,
+                                ws.data_ptr() if ws is not None else None,
                                 torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"chol_tri_inv kernel launch failed: CUDA error {err}")
@@ -312,22 +323,20 @@ def gj_inverse_plain(A: Tensor, return_pivots: bool = False):
 
 
 @functools.cache
-def _gj_kernel_fn():
-    fn = _kernels.load("gj_inverse").gj_inverse_f32
+def _gj_kernel_fn(device_index: int):
+    """The kernel's entry point, its shared-memory wide variant granted its
+    shared memory on device ``device_index`` (once a device)."""
+    lib = _kernels.load("gj_inverse")
+    with torch.cuda.device(device_index):
+        err = lib.gj_inverse_prepare()
+    if err != 0:
+        raise RuntimeError(f"gj_inverse: setting the wide variant's shared memory "
+                           f"failed: CUDA error {err}")
+    fn = lib.gj_inverse_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-@functools.cache
-def gj_max_b() -> int:
-    """The largest b the kernel takes, as its source states it (``kMaxB``
-    in ``csrc/gj_inverse.cu``); builds the kernel if needed."""
-    fn = _kernels.load("gj_inverse").gj_inverse_max_b
-    fn.argtypes = []
-    fn.restype = ctypes.c_int
-    return int(fn())
 
 
 def gj_inverse(A: Tensor, return_pivots: bool = False):
@@ -339,12 +348,15 @@ def gj_inverse(A: Tensor, return_pivots: bool = False):
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     hand-written kernel (``csrc/gj_inverse.cu``) or raises — there is no
-    fall back.  The kernel takes b <= ``gj_max_b()`` and raises
-    ``ValueError`` above it.  A zero pivot gives inf or NaN in that matrix
-    only.  ``gj_inverse.launches`` counts the kernel launches.  On an H100
-    the function must move 8 b^2 bytes a matrix; the bit-exact algorithm's
-    4 b^3 separately rounded operations set a higher floor at b >= 32 (see
-    the kernel source).
+    fall back.  The kernel takes every b whose buffers fit on the card:
+    the matrix in registers up to b = 64; above, one block a matrix with the
+    whole augmented matrix in shared memory up to b = 168 and above that in
+    a workspace of about 8 b^2 bytes a matrix, allocated here (PyTorch's
+    out-of-memory error where it does not fit).  A zero pivot gives inf or
+    NaN in that matrix only.  ``gj_inverse.launches`` counts the kernel
+    launches.  On an H100 the function must move 8 b^2 bytes a matrix; the
+    bit-exact algorithm's 4 b^3 separately rounded operations set a higher
+    floor at b >= 32 (see the kernel source).
     """
     if A.dtype != torch.float32:
         raise TypeError(f"gj_inverse takes float32, got {A.dtype}")
@@ -357,18 +369,19 @@ def gj_inverse(A: Tensor, return_pivots: bool = False):
     if A.device.type != "cuda":
         raise ValueError(f"gj_inverse runs on cpu or cuda, not {A.device}")
     b = A.shape[-1]
-    if b > gj_max_b():
-        raise ValueError(f"gj_inverse: the kernel takes b <= {gj_max_b()}, got {b}")
     G = A.numel() // (b * b) if b else 0
     inv = torch.empty_like(A)
     piv = (torch.empty(A.shape[:-1], dtype=torch.int32, device=A.device)
            if return_pivots else None)
     if G:
-        with torch.cuda.device(A.device):
-            err = _gj_kernel_fn()(
+        index = A.device.index if A.device.index is not None else torch.cuda.current_device()
+        with torch.cuda.device(index):
+            ws = _workspace("gj_inverse", G, b, A)
+            err = _gj_kernel_fn(index)(
                 A.data_ptr(), inv.data_ptr(),
                 piv.data_ptr() if return_pivots else None, G, b,
-                torch.cuda.current_stream(A.device).cuda_stream)
+                ws.data_ptr() if ws is not None else None,
+                torch.cuda.current_stream(index).cuda_stream)
         if err != 0:
             raise RuntimeError(f"gj_inverse kernel launch failed: CUDA error {err}")
         gj_inverse.launches += 1

@@ -90,8 +90,8 @@ def test_sweep_rounds_like_the_kernel():
 
 
 def test_wrapper_cpu_path_is_plain_at_any_n():
-    # the CPU path is the plain version (the JAX package's rounding), which
-    # takes n = 241, a size the kernel refuses
+    # the CPU path is the plain version (the JAX package's rounding), here at
+    # n = 241, one past the kernel's register variants
     H = spd(np.random.default_rng(11), 1, 241)
     X = tl.chol_tri_inv(torch.as_tensor(H)).numpy()
     assert np.array_equal(X, tl.chol_tri_inv_plain(torch.as_tensor(H)).numpy())
@@ -104,3 +104,11 @@ def test_sweep_matches_plain_past_the_register_variants(n):
     # kernel to bit for bit, against the plain version the CPU path runs
     H = torch.as_tensor(spd(np.random.default_rng(500 + n), 2, n))
     assert rel_err(tl.chol_tri_inv_sweep(H).numpy(), tl.chol_tri_inv_plain(H).numpy()) < 1e-4
+
+
+def test_wrapper_cpu_path_matches_sweep_past_1024():
+    # one pivot past n = 1024, a size of the kernel's wide variant: the CPU
+    # path (the plain version) against the mirror the card holds the kernel
+    # to bit for bit
+    H = torch.as_tensor(spd(np.random.default_rng(1025), 1, 1025))
+    assert rel_err(tl.chol_tri_inv(H).numpy(), tl.chol_tri_inv_sweep(H).numpy()) < 1e-4

@@ -34,6 +34,13 @@ def spd(rng, B, n):
     return np.einsum("bij,bik->bjk", A, A) + n * np.eye(n, dtype=np.float32)
 
 
+def spd_on(rng, B, n, device):
+    """A'A + n I as ``spd`` makes it, the product taken on ``device`` (the
+    host's einsum takes seconds a matrix past n = 1,000)."""
+    A = torch.as_tensor(rng.normal(size=(B, n, n)).astype(np.float32), device=device)
+    return A.mT @ A + n * torch.eye(n, device=device)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -41,25 +48,24 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("n", [1, 28, 40, 58, 73, 87, 175, 216, 244, 275])
+@pytest.mark.parametrize("n", [1, 28, 40, 58, 73, 87, 175, 216, 244, 275, 1025])
 def test_chol_tri_inv_kernel_matches_plain(cuda, n):
-    H = torch.as_tensor(spd(np.random.default_rng(n), 32, n), device=cuda)
+    # n = 1025: the wide variant, its triangle in device memory
+    rng = np.random.default_rng(n)
+    H = (torch.as_tensor(spd(rng, 32, n), device=cuda) if n <= 1024
+         else spd_on(rng, 2, n, cuda))
     before = tl.chol_tri_inv.launches
     K = tl.chol_tri_inv(H)
     P = tl.chol_tri_inv_plain(H)
     torch.cuda.synchronize()
     assert tl.chol_tri_inv.launches == before + 1
     assert rel_err(np_of(K), np_of(P)) < 1e-4
-    # the limit: register variants to n = 240, the wide variant to 1024
-    assert tl.chol_max_n() == 1024
-    with pytest.raises(ValueError):
-        tl.chol_tri_inv(torch.zeros(1, 1025, 1025, device=cuda))
 
 
 @pytest.mark.parametrize("G", [1, 32])
 @pytest.mark.parametrize("n", [1, 2, 28, 31, 32, 33, 40, 58, 73, 87, 96, 97, 175, 216,
                                225, 240, 241, 244, 256, 274, 275, 302, 303, 320, 336, 337,
-                               400, 512, 1024])
+                               400, 512, 1024, 1025, 1736, 1737, 2048])
 def test_chol_tri_inv_kernel_matches_sweep_bit_for_bit(cuda, n, G):
     # the kernel and its step mirror round every operation alike; the sizes
     # take in the panel edges (31-33, 96/97 where two matrices stop sharing
@@ -67,9 +73,12 @@ def test_chol_tri_inv_kernel_matches_sweep_bit_for_bit(cuda, n, G):
     # last register variant (225-240: its last panel holds 2 of 4 row
     # tiles), and the wide variant: one past 240, the double-track LMPC's
     # 244 and 274-275, the last size of the triangle in shared memory (302)
-    # and the first in device memory (303), the earlier edge (336, 337), up
-    # to the limit
-    H = torch.as_tensor(spd(np.random.default_rng(1000 + n), G, n), device=cuda)
+    # and the first in device memory (303), the earlier edge (336, 337),
+    # 1024 and one past it, the last size of UT in shared memory (1736) and
+    # the first in device memory (1737), and 2048
+    rng = np.random.default_rng(1000 + n)
+    H = (torch.as_tensor(spd(rng, G, n), device=cuda) if n <= 1024
+         else spd_on(rng, G, n, cuda))
     K = tl.chol_tri_inv(H)
     S = tl.chol_tri_inv_sweep(H)
     torch.cuda.synchronize()
@@ -122,26 +131,29 @@ def test_nl_solve_batch_on_card_matches_cpu(cuda, kind):
     assert (np.abs(o_g - o_c) / np.maximum(np.abs(o_c), 1.0)).max() < 1e-3
 
 
-def tie_batch(rng):
-    """Sylvester-Hadamard matrices (rows permuted, signs flipped, columns
-    scaled by powers of two): every pivot is a tie, and the elimination is
-    exact in f32."""
+def tie_batch(rng, size=16):
+    """Sylvester-Hadamard matrices of order ``size`` (rows permuted, signs
+    flipped, columns scaled by powers of two): every pivot is a tie, and
+    the elimination is exact in f32."""
     out = []
     H = np.array([[1.0]])
-    while H.shape[0] < 16:
+    while H.shape[0] < size:
         H = np.block([[H, H], [H, -H]])
     for _ in range(8):
-        M = H[rng.permutation(16)] * rng.choice([-1.0, 1.0], size=(16, 1))
-        out.append(M * 2.0 ** rng.integers(-3, 4, size=(1, 16)))
+        M = H[rng.permutation(size)] * rng.choice([-1.0, 1.0], size=(size, 1))
+        out.append(M * 2.0 ** rng.integers(-3, 4, size=(1, size)))
     return np.asarray(out, np.float32)
 
 
 @pytest.mark.parametrize("singular", [False, True])
-@pytest.mark.parametrize("b", [1, 2, 3, 15, 16, 17, 31, 32, 33, 48, 63, 64])
+@pytest.mark.parametrize("b", [1, 2, 3, 15, 16, 17, 31, 32, 33, 48, 63, 64,
+                               65, 168, 169, 256])
 def test_gj_inverse_kernel_matches_plain(cuda, b, singular):
-    # b takes in the edges of the kernel's size classes (16, 32, 64); a
-    # singular lane must give the plain version's pivots and non-finite
-    # entries, and leave the other lanes alone
+    # b takes in the edges of the kernel's size classes (16, 32, 64) and of
+    # its wide variants (the matrix in shared memory from 65 to 168, in
+    # device memory from 169); a singular lane must give the plain
+    # version's pivots and non-finite entries, and leave the other lanes
+    # alone
     rng = np.random.default_rng(b)
     An = (rng.normal(size=(40, b, b)) + 2 * np.sqrt(b) * np.eye(b)).astype(np.float32)
     if singular:
@@ -163,13 +175,17 @@ def test_gj_inverse_kernel_matches_plain(cuda, b, singular):
 
 
 def test_gj_inverse_kernel_ties_and_limits(cuda):
-    A = torch.as_tensor(tie_batch(np.random.default_rng(0)), device=cuda)
-    K, pk = tl.gj_inverse(A, return_pivots=True)
-    P, pp = tl.gj_inverse_plain(A, return_pivots=True)
-    assert torch.equal(pk, pp) and (pk[:, 0] == 0).all()
-    assert torch.equal(K, P)
-    with pytest.raises(ValueError):
-        tl.gj_inverse(torch.zeros(1, 65, 65, device=cuda))
+    for size in (16, 128):
+        A = torch.as_tensor(tie_batch(np.random.default_rng(0), size), device=cuda)
+        K, pk = tl.gj_inverse(A, return_pivots=True)
+        P, pp = tl.gj_inverse_plain(A, return_pivots=True)
+        assert torch.equal(pk, pp) and (pk[:, 0] == 0).all()
+        assert torch.equal(K, P)
+    # b = 65, one past the register classes: the plain version's bits
+    A = torch.as_tensor(np.random.default_rng(65).normal(size=(2, 65, 65)).astype(np.float32)
+                        + 16 * np.eye(65, dtype=np.float32), device=cuda)
+    assert torch.equal(tl.gj_inverse(A).view(torch.int32),
+                       tl.gj_inverse_plain(A).view(torch.int32))
     with pytest.raises(TypeError):
         tl.gj_inverse(torch.zeros(1, 8, 8, device=cuda, dtype=torch.float64))
 

@@ -2,7 +2,8 @@
 gj_inverse_plain, the CPU path of the ``gj_inverse`` kernel wrapper)
 against the JAX package's ``_gj_inverse_batch`` and its Pallas kernel in
 interpret mode, on the cases of tests/test_linalg.py:74-90, a batch with
-exact |pivot| ties and a singular lane.
+exact |pivot| ties, a singular lane, and sizes past the kernel's register
+classes (b = 65, 96 with a singular lane, 130).
 
 Tolerances: the two eliminations do the same f32 operations in the same
 order, but XLA:CPU contracts the reference's multiply-subtract into fused
@@ -86,6 +87,29 @@ def test_singular_lane_stays_in_its_lane():
     assert bad[2]
     keep = [0, 1, 3, 5]
     assert rel_err(t[keep], j[keep]) < 1e-4
+
+
+@pytest.mark.parametrize("b", [65, 96, 130])
+def test_past_the_register_classes(b):
+    # b > 64, where the kernel's wide variants run the plain version's
+    # steps on the whole augmented matrix (in shared memory to b = 168, in
+    # device memory above), so no other mirror is needed; at b = 96 one
+    # lane is singular
+    rng = np.random.default_rng(600 + b)
+    A = (rng.normal(size=(3, b, b)) + 2 * np.sqrt(b) * np.eye(b)).astype(np.float32)
+    if b == 96:
+        A[1] = 0.0
+    j, ji, t = both(A)
+    bad = ~np.isfinite(t).reshape(3, -1).all(-1)
+    assert bad.tolist() == [b == 96 and g == 1 for g in range(3)]
+    assert bad.tolist() == (~np.isfinite(j).reshape(3, -1).all(-1)).tolist()
+    assert bad.tolist() == (~np.isfinite(ji).reshape(3, -1).all(-1)).tolist()
+    keep = ~bad
+    assert rel_err(t[keep], j[keep]) < 1e-4 and rel_err(t[keep], ji[keep]) < 1e-4
+    err = np.abs(np.einsum("bij,bjk->bik", t[keep], A[keep]) - np.eye(b, dtype=np.float32)).max()
+    assert err < 2e-4
+    _, piv = tl.gj_inverse(torch.as_tensor(A), return_pivots=True)
+    assert np.array_equal(piv.numpy()[keep], jax_pivots(A)[keep])
 
 
 def test_cpu_path_launches_no_kernel_and_checks_its_input():

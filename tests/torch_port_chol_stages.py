@@ -1,5 +1,5 @@
-"""Where the time of ``chol_tri_inv``'s wide variant (240 < n <= 1024) goes,
-on the card.
+"""Where the time of ``chol_tri_inv``'s wide variant (n > 240) goes, on the
+card.
 
     python3 tests/torch_port_chol_stages.py [other.cu ...]
 
@@ -39,7 +39,11 @@ sys.path.insert(0, str(ROOT))
 from racing_lmpc_torch.ops import _kernels, linalg  # noqa: E402
 
 OUT = _kernels.BUILD_DIR / "chol_stages"
-SIGNATURE = "chol_tri_inv_wide_kernel(const float* __restrict__ H, float* out, int n)\n{"
+# the wide kernel's parameters, as the shipped source and as sources before
+# its UT workspace declare them
+SIGNATURES = ("chol_tri_inv_wide_kernel(const float* __restrict__ H, float* out, float* ut_ws, "
+              "int n)\n{",
+              "chol_tri_inv_wide_kernel(const float* __restrict__ H, float* out, int n)\n{")
 SIZES = (241, 244, 256, 274, 275, 288, 301, 302, 303, 320, 336, 337, 400, 512, 1024)
 SHAPES = ((1, 275), (1, 244), (32, 275), (1, 512))
 
@@ -48,7 +52,7 @@ def stamped(src: str) -> str:
     """``src`` with a clock64() stamp after each barrier of the wide kernel
     and at its end, and C entry points to zero and read the sums."""
     s = src.replace("namespace {\n", "namespace {\n__device__ unsigned long long g_clk[8];\n", 1)
-    k0 = s.index(SIGNATURE)
+    k0 = next(s.index(sig) for sig in SIGNATURES if sig in s)
     body = s.index("{", k0) + 1
     end = s.index("// n = 1: one thread a matrix", k0)
     kernel = s[body:end]
@@ -89,8 +93,10 @@ def build(sources: dict[str, Path]) -> dict[str, ctypes.CDLL]:
                 print(f"  {name} wide<{'shared' if 'ILb1' in cur else 'device memory'}>: "
                       f"{line.strip()}", flush=True)
         L = ctypes.CDLL(str(lib))
+        # sources with the UT workspace take its pointer before the stream
+        L.takes_ws = hasattr(L, "chol_tri_inv_workspace_floats")
         L.chol_tri_inv_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_void_p]
+                                       ctypes.c_int] + [ctypes.c_void_p] * (2 if L.takes_ws else 1)
         L.chol_tri_inv_f32.restype = ctypes.c_int
         if L.chol_tri_inv_prepare() != 0:
             raise RuntimeError(f"{name}: chol_tri_inv_prepare failed")
@@ -100,7 +106,9 @@ def build(sources: dict[str, Path]) -> dict[str, ctypes.CDLL]:
 
 def call(L, H):
     out = torch.empty_like(H)
-    err = L.chol_tri_inv_f32(H.data_ptr(), out.data_ptr(), H.shape[0], H.shape[-1],
+    # the sizes here keep UT in shared memory: no workspace
+    ws = (None,) if L.takes_ws else ()
+    err = L.chol_tri_inv_f32(H.data_ptr(), out.data_ptr(), H.shape[0], H.shape[-1], *ws,
                              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: CUDA error {err}")
