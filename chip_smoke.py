@@ -10,14 +10,17 @@
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
    at the paths' shapes and at the other shipped sizes; ``chol_tri_inv``
    also bit for bit against its step mirror ``chol_tri_inv_sweep``, on a
-   wide-spectrum case, the wide variant's sizes (n = 241 to 2,048, the
-   edges of its triangle and of its UT in shared memory among them), a
-   batch with one indefinite lane at n = 87, 275 and 1,025 (NaN there
-   only); ``gj_inverse`` on a pivoting case, exact |pivot| ties at b = 16
-   and 128, the edges of its size classes and variants (b = 1 to 256) and
+   wide-spectrum case, the wide and grid variants' sizes (n = 241 to 2,048,
+   the edges of the triangle and of UT in shared memory among them, the
+   large sizes at batch 1 and 4, and batch 33 past the grid variant's
+   batches, n = 1,024 timed at batch 32 and 33), a batch with one
+   indefinite lane at n = 87, 275 and 1,025 (NaN there only);
+   ``gj_inverse`` on a pivoting case, exact |pivot| ties at b = 16, 128 and
+   256, the edges of its size classes and variants (b = 1 to 1,547) and
    singular lanes: the same pivots, the same non-finite entries and the
    same bits on the finite ones as the plain version, and its refusal of
-   float64.  Times kernel, plain version and a library yardstick with CUDA
+   float64.  Every line names the variant the call ran.  Times kernel,
+   plain version and a library yardstick with CUDA
    events, synchronizing after every repetition, and the kernel's and the
    yardstick's device time under the profiler; ``chol_tri_inv`` also
    beside the one-SM floor of a batch-1 chain, ``gj_inverse`` beside the
@@ -266,19 +269,40 @@ def device_rows(prof) -> list[tuple[str, int, float]]:
     return [(name, count, ns / 1e6) for name, (count, ns) in rows.items()]
 
 
-def device_ms(fn, reps: int) -> float:
+# profiler sessions device_ms takes before it gives up on a reading
+PROFILE_TRIES = 6
+
+
+def device_ms(fn, reps: int) -> float | None:
     """Device time of one call of ``fn`` in ms: the CUDA kernels' time under
     the profiler, summed over ``reps`` calls and divided by ``reps`` (the
-    host's launch overhead, which ``cuda_time_ms`` includes, left out)."""
+    host's launch overhead, which ``cuda_time_ms`` includes, left out).
+
+    The profiler (torch 2.11 with CUDA 12.8 on an H100) drops the kernel
+    records of whole short sessions, often every other one, and now and
+    then of some calls of a session (an earlier reading of 11-78 ms between
+    a call and its device time at (1,2048,2048) and (4,1024,1024) was 1 or 2
+    of 5 calls' records missing, divided by 5).  So a reading counts only
+    when every kernel came back a whole number of times a call, and is
+    taken again otherwise, up to ``PROFILE_TRIES`` sessions; if none comes
+    back whole the reading is None (not measured)."""
     import torch
     from torch.profiler import ProfilerActivity
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(PROFILE_TRIES):
+        fn()
         torch.cuda.synchronize()
-    return sum(r[2] for r in device_rows(prof)) / reps
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        if rows and all(count % reps == 0 for _, count, _ in rows):
+            return sum(r[2] for r in rows) / reps
+    return None
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def same_bits(a, b) -> bool:
@@ -299,6 +323,14 @@ def spd_batch(rng, G: int, n: int, cond_boost: float = 0.0) -> np.ndarray:
         s = 10.0 ** rng.uniform(0, cond_boost, size=(G, n)).astype(np.float32)
         H = H * s[:, :, None] * s[:, None, :]
     return H.astype(np.float32)
+
+
+def spd_on_card(rng, G: int, n: int, device):
+    """``big_spd_batch`` with the product A'A taken on the card (the host
+    takes seconds a matrix past n = 1,000 and minutes for a batch)."""
+    import torch
+    A = torch.as_tensor(rng.normal(size=(G, n, n)).astype(np.float32), device=device)
+    return A.mT @ A + n * torch.eye(n, device=device)
 
 
 def big_spd_batch(rng, G: int, n: int) -> np.ndarray:
@@ -392,48 +424,75 @@ def kernel_phase(device) -> dict:
     # the wide variant (n > 240): the double-track LMPC's batch (n = 275)
     # and single solve (n = 275, and the sample config's 244), one pivot
     # past the register variants, the shared-memory triangle's last size
-    # (302) and the first in device memory (303), the triangle's earlier
-    # edge (336, 337), n = 1024; and a timed size in device
-    # memory
+    # (302); past it the grid variant (at most 32 matrices): the first size
+    # (303), the triangle's earlier edge (336, 337), n = 1024 and a timed
+    # size
     cases.append(("H, double-track LMPC batch N=60 K=96", spd_batch(rng, 32, 275), True))
     cases.append(("H, double-track LMPC single N=60 K=96", spd_batch(rng, 1, 275), True))
     cases.append(("H, double-track LMPC single N=50 K=96", spd_batch(rng, 1, 244), True))
     for n in (241, 244, 256, 274, 275, 302, 303, 320, 336, 337, 400, 512):
-        cases.append((f"wide n={n}", spd_batch(rng, 4, n), False))
-    cases.append(("wide n=1024", spd_batch(rng, 1, 1024), False))
-    cases.append(("wide, triangle in device memory", spd_batch(rng, 1, 512), True))
-    # the large sizes (their own path): one pivot past 1024, the last
-    # size whose UT fits in shared memory (1736) and the first in device
-    # memory (1737), and a timed size there
+        cases.append((f"n={n}", spd_batch(rng, 4, n), False))
+    cases.append(("n=1024", spd_batch(rng, 1, 1024), False))
+    cases.append(("n=512 at batch 1", spd_batch(rng, 1, 512), True))
+    # the large sizes (their own path): one pivot past 1024, the last size
+    # whose UT the one-block variant keeps in shared memory (1736) and the
+    # first it keeps in device memory (1737), at batch 1 and 4 (the grid
+    # variant), and timed at 2048, batch 1 and 32
     for n in (1025, 1736, 1737):
-        cases.append((f"wide n={n}", big_spd_batch(rng, 1, n), False))
-    cases.append(("wide, UT in device memory", big_spd_batch(rng, 1, 2048), True))
+        cases.append((f"n={n}", big_spd_batch(rng, 1, n), False))
+    cases.append(("n=2048 at batch 1", big_spd_batch(rng, 1, 2048), True))
+    # timed, held to the sweep mirror only
+    cases.append(("n=2048 at batch 32", spd_on_card(rng, 32, 2048, device), "no plain"))
+    # held to the sweep mirror only (the plain version takes seconds a
+    # case here): batch 4 at the large sizes, and batch 33, one past the
+    # grid variant's batches, where one block a matrix runs again; n = 1024
+    # timed on both sides of that rule (batch 32 and 33)
+    for n in (1025, 1736, 1737, 2048):
+        cases.append((f"n={n} at batch 4", spd_on_card(rng, 4, n, device), None))
+    cases.append(("n=1024 at batch 32", spd_on_card(rng, 32, 1024, device), "no plain"))
+    for n in (303, 1024, 1737):
+        cases.append((f"n={n} at batch 33, one block a matrix", spd_on_card(rng, 33, n, device),
+                      "no plain" if n == 1024 else None))
     main = None
     for name, Hn, timed in cases:
         H = torch.as_tensor(Hn, device=device)
-        if H.shape[-1] > 1024:
+        G, n = H.shape[0], H.shape[-1]
+        variant = linalg.kernel_variant("chol_tri_inv", G, n)
+        if n > 1024:
             K = on_path(lambda: linalg.chol_tri_inv(H))
         else:
             K = linalg.chol_tri_inv(H)
-        P = linalg.chol_tri_inv_plain(H)
+        # past n = 1024 a plain call takes seconds: its one timed call is
+        # the one compared
+        plain_ms = None
+        if timed is None or timed == "no plain":
+            P = None
+        elif timed and n > 1024:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            P = linalg.chol_tri_inv_plain(H)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+        else:
+            P = linalg.chol_tri_inv_plain(H)
         S = linalg.chol_tri_inv_sweep(H)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(K).all()), f"{name}: kernel gave non-finite values")
-        err = rel_err(K, P)
-        check(err < 1e-4, f"{name} {tuple(H.shape)}: kernel vs plain {err:.2e} > 1e-4")
         check(same_bits(K, S), f"{name} {tuple(H.shape)}: kernel not bit-equal to the "
               f"sweep mirror (max diff {float((K - S).abs().max()):.3e})")
         check(bool((torch.triu(K, 1) == 0).all()), f"{name}: upper part not zero")
-        line = (f"kernel {name} {tuple(H.shape)}: max rel err vs plain {err:.3e}, "
-                f"bit-equal to the sweep mirror")
+        line = f"kernel {name} {tuple(H.shape)} [{variant}]: bit-equal to the sweep mirror"
+        if P is not None:
+            err = rel_err(K, P)
+            check(err < 1e-4, f"{name} {tuple(H.shape)}: kernel vs plain {err:.2e} > 1e-4")
+            line += f", max rel err vs plain {err:.3e}"
         if timed:
-            G, n = H.shape[0], H.shape[-1]
-            # past n = 1024 a kernel call takes ~0.05 s and a plain one seconds
             small = n <= 1024
             ms = cuda_time_ms(lambda: linalg.chol_tri_inv(H), reps=20 if small else 5)
             dev = device_ms(lambda: linalg.chol_tri_inv(H), reps=20 if small else 5)
-            plain_ms = cuda_time_ms(lambda: linalg.chol_tri_inv_plain(H),
-                                    reps=PLAIN_REPS if small else 1, warmup=2 if small else 0)
+            if small and timed != "no plain":
+                plain_ms = cuda_time_ms(lambda: linalg.chol_tri_inv_plain(H), reps=PLAIN_REPS)
             lib_ms = cuda_time_ms(lambda: library(H), reps=20)
             lib_dev = device_ms(lambda: library(H), reps=20)
             # the lower triangle of each symmetric input read once (all the
@@ -442,9 +501,10 @@ def kernel_phase(device) -> dict:
             flops_ms = G * (2.0 / 3.0) * n ** 3 / F32_PEAK_FLOP_PER_S * 1e3
             # one matrix's pivots are a dependent chain on one SM
             floor_ms = (2.0 / 3.0) * n ** 3 / (F32_PEAK_FLOP_PER_S / SM_COUNT) * 1e3
-            line += (f"; kernel {ms:.4f} ms a call ({dev:.4f} ms on the device), plain "
-                     f"{plain_ms:.4f} ms, torch.linalg yardstick {lib_ms:.4f} ms a call "
-                     f"({lib_dev:.4f} ms on the device), bound "
+            line += (f"; kernel {ms:.4f} ms a call ({fmt_ms(dev)} on the device), plain "
+                     f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, torch.linalg "
+                     f"yardstick {lib_ms:.4f} ms a call "
+                     f"({fmt_ms(lib_dev)} on the device), bound "
                      f"{max(bytes_ms, flops_ms):.5f} ms, one-SM floor {floor_ms:.5f} ms; "
                      f"kernel {'<=' if ms <= lib_ms else '>'} yardstick")
             if main is None:
@@ -542,19 +602,22 @@ def gj_kernel_phase(device) -> dict:
              ("exact ties", hadamard_tie_batch(rng), False),
              ("one singular lane", with_singular_lane(8, 16), False)]
     # the kernel's size classes (b <= 16, 32, 64) and their edges; past b =
-    # 64 (the large sizes' path) the wide variants, the matrix in shared memory
-    # to b = 168 and in device memory above
+    # 64 (the large sizes' path) the wide variant, the matrix in shared
+    # memory, to b = 168, and the grid variant above: its panel in shared
+    # memory to b = 1,546, in the workspace from 1,547
     cases += [(f"class edge b={b}", invertible(37, b), False)
               for b in (1, 2, 15, 16, 17, 31, 32, 33, 48, 63, 64, 65, 96, 168, 169, 256)]
     cases += [(f"one singular lane b={b}", with_singular_lane(8, b), False)
-              for b in (32, 64, 65, 168, 169)]
-    cases += [("exact ties b=128", hadamard_tie_batch(rng, 128), False)]
+              for b in (32, 64, 65, 168, 169, 256, 512, 1024, 1546, 1547)]
+    cases += [("b=512", invertible(2, 512), False)]
+    cases += [(f"exact ties b={b}", hadamard_tie_batch(rng, b), False) for b in (128, 256)]
     cases += [("b=16", invertible(65536, 16), True), ("b=32", invertible(4096, 32), True),
               ("b=64", invertible(1024, 64), True), ("b=128", invertible(256, 128), True),
               ("b=1024", invertible(4, 1024), True)]
     shapes = []
     for name, An, timed in cases:
         A = torch.as_tensor(An, device=device)
+        variant = linalg.kernel_variant("gj_inverse", A.shape[0], A.shape[-1])
         past = A.shape[-1] > 64     # on_path counts from 0
         before = 0 if past else linalg.gj_inverse.launches
 
@@ -571,8 +634,8 @@ def gj_kernel_phase(device) -> dict:
         check(bool(torch.equal(K[fin].view(torch.int32), P[fin].view(torch.int32))),
               f"gj {name} {tuple(A.shape)}: kernel not bit-equal to plain on the finite "
               f"entries (max |diff| {err:.3e})")
-        line = (f"kernel gj_inverse {name} {tuple(A.shape)}: same pivots, same non-finite "
-                f"entries, bit-equal on the finite ones")
+        line = (f"kernel gj_inverse {name} {tuple(A.shape)} [{variant}]: same pivots, same "
+                f"non-finite entries, bit-equal on the finite ones")
         if name.startswith("exact ties"):
             eye = torch.eye(A.shape[-1], device=device).expand_as(A)
             check(bool(torch.equal(K @ A, eye)), f"gj {name}: inverse not exact")
@@ -582,7 +645,7 @@ def gj_kernel_phase(device) -> dict:
                   f"gj {name}: non-finite lanes {bad.nonzero().flatten().tolist()}")
         if timed:
             G, b = A.shape[0], A.shape[-1]
-            reps = 20 if b <= 128 else 5   # ~0.1 s a call at b = 1024
+            reps = 20
             ms = cuda_time_ms(lambda: linalg.gj_inverse(A), reps=reps)
             dev = device_ms(lambda: linalg.gj_inverse(A), reps=reps)
             plain_ms = cuda_time_ms(lambda: linalg.gj_inverse_plain(A), reps=PLAIN_REPS)
@@ -596,9 +659,9 @@ def gj_kernel_phase(device) -> dict:
             # separately rounded multiplies and subtracts and 2 b^2 IEEE
             # divisions (8 instructions each) a matrix at the f32 issue rate
             op_floor_ms = G * (4.0 * b ** 3 + 8 * 2.0 * b * b) / F32_INSTR_PER_S * 1e3
-            line += (f"; kernel {ms:.4f} ms a call ({dev:.4f} ms on the device), plain "
+            line += (f"; kernel {ms:.4f} ms a call ({fmt_ms(dev)} on the device), plain "
                      f"{plain_ms:.4f} ms, torch.linalg.inv yardstick {lib_ms:.4f} ms a call "
-                     f"({lib_dev:.4f} ms on the device), bound "
+                     f"({fmt_ms(lib_dev)} on the device), bound "
                      f"{max(bytes_ms, flops_ms):.5f} ms, operation floor {op_floor_ms:.5f} ms; "
                      f"kernel {'<=' if ms <= lib_ms else '>'} yardstick")
             shapes.append({"shape": list(A.shape), "max_abs_err": err, "ms": ms,
@@ -628,13 +691,16 @@ def profile(fn, wall_ms: float, label: str, against_key_averages: bool = False) 
     profiler's own ``key_averages()`` rows of device type CUDA."""
     import torch
     from torch.profiler import ProfilerActivity
+    from racing_lmpc_torch.ops import linalg
     t = time.perf_counter()
+    launched = linalg.chol_tri_inv.launches
     # the device's activity only: the readings below are kernel events, and
     # recording every CPU op too made the profiler's own work take most of
     # the script's time on the paths of ~10^5 launches
     with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    launched = linalg.chol_tri_inv.launches - launched
     rows = device_rows(prof)
 
     def reading(rs):
@@ -652,10 +718,15 @@ def profile(fn, wall_ms: float, label: str, against_key_averages: bool = False) 
               f"profile {label}: the raw events' reading {(launches, busy, chol_launches, chol)} "
               f"differs from key_averages()'s {ref}")
     idle = 1 - busy / wall_ms
+    # the profiler can drop records (device_ms): the kernel's own launch
+    # count says whether this reading is whole
+    whole = (f"records whole ({chol_launches} of {launched} chol_tri_inv launches)"
+             if chol_launches == launched else
+             f"RECORDS DROPPED: {chol_launches} of {launched} chol_tri_inv launches recorded")
     print(f"profile {label}: {launches} kernel launches, device busy "
           f"{busy:.1f} ms of {wall_ms:.1f} ms wall (idle share {idle:.3f}; chol_tri_inv "
-          f"{chol:.1f} ms, {chol / busy:.3f} of busy; the profiled call and its reading "
-          f"{time.perf_counter() - t:.1f} s)", flush=True)
+          f"{chol:.1f} ms, {chol / busy if busy else 0.0:.3f} of busy; {whole}; the profiled "
+          f"call and its reading {time.perf_counter() - t:.1f} s)", flush=True)
     for key, count, t in sorted(rows, key=lambda r: -r[2])[:6]:
         print(f"  {t:8.2f} ms  {count:6d} x  {key[:90]}", flush=True)
     return idle

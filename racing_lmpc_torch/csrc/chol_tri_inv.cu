@@ -62,9 +62,10 @@
 // 1 / sqrt(h).
 //
 // Wide variant, n > 240 (the double-track LMPC's QPs at the shipped
-// learning horizons, n = 244 and 275, and every larger n the JAX function
-// takes): the same blocked sweep in panels of 32 pivots, one block of 16
-// warps (kWideThreads) a matrix.  The lower triangle lives packed in
+// learning horizons, n = 244 and 275; past n = 302 only for batches of more
+// than kGridMaxG matrices, which the grid variant below takes otherwise):
+// the same blocked sweep in panels of 32 pivots, one block of 16 warps
+// (kWideThreads) a matrix.  The lower triangle lives packed in
 // dynamic shared memory up to n = 302 (kSmemMaxN: n (n + 1) / 2 floats
 // beside D, UP, rr and UT, 231,268 B at n = 302, under the 232,448 B a
 // block may take; chol_tri_inv_prepare() grants the instances their shared
@@ -118,6 +119,46 @@
 // it (ipm.py:434-444).  Nothing traps or exits early, and no other matrix
 // is touched.
 //
+// Grid variant, n >= kGridMinN (303) and at most kGridMaxG (32) matrices a
+// launch: each matrix over the whole card.  One block a matrix leaves 131
+// of the 132 SMs idle at batch 1, and its one-SM floor alone (11.3 ms at
+// n = 2048) is six times the torch.linalg yardstick, so no tuning of that
+// design can reach it.  Here one persistent cooperative launch
+// (cudaLaunchCooperativeKernel, kGridThreads a block, as many blocks as are
+// co-resident and the widest stage has tasks) runs the same stages, in the
+// same order, the batch's matrices side by side, with a grid-wide barrier
+// between stages: the triangle in place in out (16 MB at n = 2048,
+// resident in L2), UT, UP and rr of each matrix in a workspace of
+// grid_ws_floats(n) floats a matrix.  For each panel:
+//   X  S3, one warp a line (a row below the panel, grid_row_below, or a
+//      column left of it, grid_panel_left, which also writes that column of
+//      the panel rows' X into the triangle): the operations of
+//      wide_row_below and wide_panel_left, lane c holding the line's entry
+//      c and the pivot's entry shuffled to the warp (one thread a line, as
+//      the wide variant has it, was several times slower here: each thread
+//      ran ~2,000 unrolled instructions once a panel, with few warps to
+//      share them), kS3Lines lines of one matrix a task, each block reading
+//      that matrix's UP and rr into shared memory first; barrier;
+//   Y  one task a matrix, the "chain" (with more blocks than matrices, on
+//      a block that runs nothing else): the next panel's diagonal block
+//      takes this panel's update into D, by the whole block (S1 in the same
+//      pass), then warp 0 runs the next panel's S2 and publishes its UP, rr
+//      and block of X; beside it, on the other
+//      blocks, S4 of every other entry in block tiles of kGT x kGT (the
+//      rows below the panel by the columns left of it, and the trailing
+//      triangle from the next panel's rows down, its diagonal block left
+//      out), each block staging the tile's 32 rows of l and of u from UT in
+//      shared memory and each thread applying the 32 pivots in ascending
+//      order to its kTR x kTC entries; barrier.
+// The argument above holds unchanged: each entry takes each pivot's
+// multiply-subtract once, with the same factors, in pivot order,
+// and every stage reads only what was written before the last barrier or
+// by its own thread (tests/test_torch_large_kernels.py repeats this
+// schedule in PyTorch, panel by panel and tile by tile).  The G chains of
+// a panel run side by side, so G matrices cost about what one does until
+// the tiles fill the card; past kGridMaxG matrices one block a matrix is
+// faster (grid_takes).
+//
 // Bound on an H100 SXM (700 W): the lower triangle of each symmetric input
 // read once and each dense output written once, 4 G (n(n+1)/2 + n^2)
 // bytes over 3.35 TB/s, against 2/3 n^3 flops a matrix over 67 TFLOP/s of
@@ -127,11 +168,17 @@
 // batch 1 the one-warp panel sweeps (S2) and the shuffled row sweeps (S3)
 // are the dependent chains of the register variants; registers and spills
 // of each variant: ptxas -v, printed by chip_smoke.py; times in PERF.md.
+// The grid variant's critical path is a panel's chain (the diagonal block's
+// update, S1 and S2) plus S3 and two grid barriers, n / 32 times; its
+// arithmetic, 2/3 n^3 separately rounded operations, is spread over every
+// SM.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
-#include <utility>
+#include "grid_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -139,40 +186,18 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRegMaxN = 240;    // the register variants' largest n
 constexpr int kSmemMaxN = 302;   // the wide variant's triangle in shared memory
 constexpr int kUTSmemMaxN = 1736;   // the wide variant's UT in shared memory
+constexpr int kGridMinN = 303;   // the grid variant's first n ...
+constexpr int kGridMaxG = 32;    // ... up to this many matrices a launch
 constexpr int kSmemOptin = 232448;   // the shared memory a block may take
 constexpr int kWideThreads = 512;
 constexpr int kTR = 8, kTC = 4;      // the wide variant's S4 tile, rows x columns
 constexpr int kLd = 36;   // row stride of the shared panel arrays: 16-byte rows
 constexpr int W = 8;      // warps a matrix: 256 threads
 
-// f(integral_constant<int, 0>), ..., f(integral_constant<int, N - 1>):
-// a loop whose index is a constant in each copy of the body
-template <class F, int... I>
-__device__ __forceinline__ void sfor_impl(F&& f, std::integer_sequence<int, I...>)
-{
-    (f(std::integral_constant<int, I>{}), ...);
-}
-
-template <int N, class F>
-__device__ __forceinline__ void sfor(F&& f)
-{
-    sfor_impl(f, std::make_integer_sequence<int, N>{});
-}
-
 // the last 32-column tile that row tile a reaches
 __host__ __device__ constexpr int bmax(int RB, int a)
 {
     return (W * (a + 1) - 1) / 32 < RB - 1 ? (W * (a + 1) - 1) / 32 : RB - 1;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p)
-{
-    return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d)
-{
-    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
 
 // The panel's diagonal block D (nb x nb, nb <= 32), by one warp: lane c
@@ -758,6 +783,266 @@ __global__ void chol_tri_inv_1x1_kernel(const float* __restrict__ H,
     if (g < G) out[g] = __fdiv_rn(1.0f, __fsqrt_rn(H[g]));
 }
 
+// ---- The grid variant, n >= kGridMinN ----------------------------------
+
+constexpr int kGridThreads = 128;
+constexpr int kGT = 64;   // the grid variant's S4 block tile: kGT x kGT entries
+static_assert((kGT / kTR) * (kGT / kTC) == kGridThreads, "one kTR x kTC tile a thread");
+
+// Floats of the grid variant's workspace a matrix: UT (32 x wide_ld(n)),
+// then UP (32 x kLd) and rr (32), each 16-byte aligned
+__host__ __device__ constexpr size_t grid_ws_floats(int n)
+{
+    return 32 * (size_t)wide_ld(n) + 32 * kLd + 32;
+}
+
+// row i of a matrix kept in place in out
+struct OutRows {
+    float* O;
+    int n;
+    __device__ float* operator()(int i) const { return O + (size_t)i * n; }
+};
+
+constexpr int kS3Lines = 8;   // the grid variant's S3 lines a task, two a warp
+
+// S3 of the grid variant, one row i below the panel (nb = 32) by one warp:
+// lane c holds the row's entry in the panel's column c.  Pivot p's l_i is
+// lane p's entry times r_p (shuffled to the warp), kept in UT; then every
+// lane takes l_i u^(p)_c, lane p's entry restarted from 0 first: the
+// operations of wide_row_below, entry for entry, in registers of 32 lanes
+// instead of one thread's 32.
+__device__ __forceinline__ void grid_row_below(float* row, int i, const float (*UP)[kLd],
+                                               const float* rr, float* UT, int ld)
+{
+    const int lane = threadIdx.x & 31;
+    float m = row[lane], keep = 0.0f;
+#pragma unroll 8
+    for (int p = 0; p < 32; ++p) {
+        const float li = __fmul_rn(__shfl_sync(kFull, m, p), rr[p]);
+        keep = lane == p ? li : keep;
+        m = __fsub_rn(lane == p ? 0.0f : m, __fmul_rn(li, UP[p][lane]));
+    }
+    row[lane] = m;
+    UT[lane * ld + i] = keep;
+}
+
+// S3 of the grid variant, one column k left of the panel by one warp: lane
+// c holds panel row c's entry; pivot p's X[p][k] is lane p's entry times
+// r_p, which then leaves UP[p][c] X[p][k] from each lane c > p (the forward
+// substitution of wide_panel_left).  The column of X goes into UT for S4
+// and into the triangle.
+template <class RowOf>
+__device__ __forceinline__ void grid_panel_left(const RowOf& row_of, int k, int j0, int nb,
+                                                const float (*UP)[kLd], const float* rr,
+                                                float* UT, int ld)
+{
+    const int lane = threadIdx.x & 31;
+    float col = lane < nb ? row_of(j0 + lane)[k] : 0.0f;
+#pragma unroll 8
+    for (int p = 0; p < 32; ++p) {
+        if (p < nb) {
+            const float x = __fmul_rn(__shfl_sync(kFull, col, p), rr[p]);
+            col = lane == p ? x : lane > p ? __fsub_rn(col, __fmul_rn(UP[p][lane], x)) : col;
+        }
+    }
+    if (lane < nb) {
+        UT[lane * ld + k] = col;
+        row_of(j0 + lane)[k] = col;
+    }
+}
+
+// G matrices, n >= kGridMinN: the wide variant's stages over the whole card
+// (see the note at the top), each matrix's triangle in place in out, its
+// UT, UP and rr in ws (grid_ws_floats(n) floats a matrix).  Launched
+// cooperatively with no more blocks than are co-resident.
+__global__ void __launch_bounds__(kGridThreads, 2)
+chol_tri_inv_grid_kernel(const float* __restrict__ H, float* out, float* ws, int G, int n)
+{
+    cg::grid_group grid = cg::this_grid();
+    __shared__ __align__(16) float D[32][kLd];     // a chain's diagonal block
+    __shared__ __align__(16) float UP[32][kLd];    // u^(p) on the panel
+    __shared__ __align__(16) float rr[32];         // r of each pivot
+    __shared__ __align__(16) float Ls[32][kGT];    // a tile's l_i, pivot-major
+    __shared__ __align__(16) float Us[32][kGT];    // a tile's u_k, pivot-major
+
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int nblk = gridDim.x, bid = blockIdx.x;
+    const int ld = wide_ld(n);
+    const size_t nn = (size_t)n * n, wsm = grid_ws_floats(n);
+    constexpr int kWarps = kGridThreads / 32;
+    auto rows = [=](int g) { return OutRows{out + (size_t)g * nn, n}; };
+    auto ut = [=](int g) { return ws + (size_t)g * wsm; };
+
+    // ---- the lower triangle in; the strictly upper part of out is zeroed
+    // here and never touched again ------------------------------------------
+    for (size_t r = (size_t)bid * kWarps + w; r < (size_t)G * n; r += (size_t)nblk * kWarps) {
+        const size_t g = r / n;
+        const int i = (int)(r - g * n);
+        const float* a = H + g * nn + (size_t)i * n;
+        float* o = out + g * nn + (size_t)i * n;
+        for (int k = lane; k < n; k += 32) o[k] = k <= i ? a[k] : 0.0f;
+    }
+    grid.sync();
+
+    // A chain: the panel jA .. jB - 1 of matrix g.  When jP >= 0, its
+    // diagonal block first takes the update of the panel at jP (whose l
+    // and u are in UT) into D, by the whole block; then warp 0 runs its S2
+    // (and, for the first panel, its S1), publishes UP and rr and writes its
+    // block of X into the triangle.
+    auto chain = [&](int g, int jA, int jB, int jP) {
+        const OutRows row = rows(g);
+        float* const UT = ut(g);
+        const int nbA = jB - jA;
+        __syncthreads();
+        if (jP >= 0) {
+            // the block's 32 x 32 l of the panel at jP staged in Ls; each
+            // thread's entries D[w + 4 k][lane] (k < 8) take its pivots in
+            // ascending order straight into D, zero above the diagonal and
+            // past nbA (S1 in the same pass)
+            for (int e = tid; e < 32 * 32; e += kGridThreads) {
+                const int p = e >> 5, x = e & 31;
+                Ls[p][x] = x < nbA ? UT[p * ld + jA + x] : 0.0f;
+            }
+            __syncthreads();
+            float acc[8];
+            sfor<8>([&](auto k_) {
+                constexpr int k = decltype(k_)::value;
+                const int r = w + 4 * k;
+                acc[k] = r < nbA && lane <= r ? row(jA + r)[jA + lane] : 0.0f;
+            });
+            for (int p = 0; p < 32; ++p) {
+                const float u = Ls[p][lane];
+                sfor<8>([&](auto k_) {
+                    constexpr int k = decltype(k_)::value;
+                    acc[k] = __fsub_rn(acc[k], __fmul_rn(Ls[p][w + 4 * k], u));
+                });
+            }
+            sfor<8>([&](auto k_) {
+                constexpr int k = decltype(k_)::value;
+                const int r = w + 4 * k;
+                D[r][lane] = r < nbA && lane <= r ? acc[k] : 0.0f;
+            });
+            __syncthreads();
+        }
+        if (w == 0) {
+            if (jP < 0) wide_load_block(row, D, jA, nbA);
+            wide_factor_panel(D, UP, rr, nbA);
+            float* const UPg = UT + 32 * ld;
+            for (int e = lane; e < 32 * kLd; e += 32) UPg[e] = (&UP[0][0])[e];
+            UPg[32 * kLd + lane] = rr[lane];
+            for (int r = 0; r < nbA; ++r)
+                if (lane <= r) row(jA + r)[jA + lane] = D[r][lane];
+        }
+    };
+
+    // An S4 tile: q-th of the panel j0 .. j1 - 1's tiles of matrix g: first
+    // R x Lc tiles of the rows below by the columns left of the panel, then
+    // the trailing triangle's R (R + 1) / 2 tiles from column j1, of which
+    // the rows above j2 (the next panel's diagonal block, the chain's) are
+    // left out.
+    auto tile = [&](int g, long long q, int j0, int j1, int j2, int R, int Lc) {
+        float* const UT = ut(g);
+        const OutRows row = rows(g);
+        const bool left = q < (long long)R * Lc;
+        int a, b;
+        if (left) {
+            a = (int)(q / Lc);
+            b = (int)(q - (long long)a * Lc);
+        } else {
+            const int t = (int)(q - (long long)R * Lc);
+            a = (int)((sqrtf(8.0f * (float)t + 1.0f) - 1.0f) * 0.5f);
+            while (a > 0 && a * (a + 1) / 2 > t) --a;
+            while ((a + 1) * (a + 2) / 2 <= t) ++a;
+            b = t - a * (a + 1) / 2;
+        }
+        const int r0 = j1 + kGT * a, c0 = (left ? 0 : j1) + kGT * b;
+        const int cend = left ? j0 : n;   // the tile's columns end before cend
+        __syncthreads();
+        for (int e = tid; e < 32 * kGT; e += kGridThreads) {
+            const int p = e / kGT, x = e % kGT;
+            Ls[p][x] = r0 + x < n ? UT[p * ld + r0 + x] : 0.0f;
+            Us[p][x] = c0 + x < cend ? UT[p * ld + c0 + x] : 0.0f;
+        }
+        __syncthreads();
+        const int tr = tid / (kGT / kTC), tc = tid % (kGT / kTC);
+        const int i0 = r0 + kTR * tr, k0 = c0 + kTC * tc;
+        auto takes = [&](int i, int k) {
+            return i < n && k < cend && (left || (k <= i && i >= j2));
+        };
+        float acc[kTR][kTC];
+        sfor<kTR>([&](auto r_) {
+            constexpr int r = decltype(r_)::value;
+            sfor<kTC>([&](auto c_) {
+                constexpr int c = decltype(c_)::value;
+                acc[r][c] = takes(i0 + r, k0 + c) ? row(i0 + r)[k0 + c] : 0.0f;
+            });
+        });
+#pragma unroll 4
+        for (int p = 0; p < 32; ++p) {
+            const float4 l0 = ld4(&Ls[p][kTR * tr]), l1 = ld4(&Ls[p][kTR * tr + 4]);
+            const float4 u = ld4(&Us[p][kTC * tc]);
+            const float li[kTR] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+            const float uk[kTC] = {u.x, u.y, u.z, u.w};
+            sfor<kTR>([&](auto r_) {
+                constexpr int r = decltype(r_)::value;
+                sfor<kTC>([&](auto c_) {
+                    constexpr int c = decltype(c_)::value;
+                    acc[r][c] = __fsub_rn(acc[r][c], __fmul_rn(li[r], uk[c]));
+                });
+            });
+        }
+        sfor<kTR>([&](auto r_) {
+            constexpr int r = decltype(r_)::value;
+            sfor<kTC>([&](auto c_) {
+                constexpr int c = decltype(c_)::value;
+                if (takes(i0 + r, k0 + c)) row(i0 + r)[k0 + c] = acc[r][c];
+            });
+        });
+    };
+
+    // ---- S1, S2 of the first panel -------------------------------------
+    split_tasks(G, 0, [&](int g) { chain(g, 0, n < 32 ? n : 32, -1); }, [](long long) {});
+    grid.sync();
+
+    int j0 = 0;
+    for (;; j0 += 32) {
+        const int nb = n - j0 < 32 ? n - j0 : 32;
+        const int j1 = j0 + nb;
+
+        // ---- X: S3, one warp a line, kS3Lines lines of one matrix a task;
+        // a block reads a matrix's UP and rr once for its run of tasks -----
+        const int lines = n - nb, chunks = (lines + kS3Lines - 1) / kS3Lines;
+        int staged = -1;
+        for (long long q = bid; q < (long long)G * chunks; q += nblk) {
+            const int g = (int)(q / chunks);
+            float* const UT = ut(g);
+            if (g != staged) {
+                const float* const UPg = UT + 32 * ld;
+                __syncthreads();
+                for (int e = tid; e < 32 * kLd; e += kGridThreads) (&UP[0][0])[e] = UPg[e];
+                if (tid < 32) rr[tid] = UPg[32 * kLd + tid];
+                __syncthreads();
+                staged = g;
+            }
+            for (int u = (int)(q % chunks) * kS3Lines + w; u < lines &&
+                 u < (int)(q % chunks + 1) * kS3Lines; u += kWarps) {
+                if (u < j0) grid_panel_left(rows(g), u, j0, nb, UP, rr, UT, ld);
+                else grid_row_below(rows(g)(j1 + u - j0) + j0, j1 + u - j0, UP, rr, UT, ld);
+            }
+        }
+        grid.sync();
+        if (j1 == n) break;
+
+        // ---- Y: the next panel's chain beside S4 --------------------------
+        const int j2 = n - j1 < 32 ? n : j1 + 32;
+        const int R = (n - j1 + kGT - 1) / kGT, Lc = (j0 + kGT - 1) / kGT;
+        const long long per = (long long)R * Lc + (long long)R * (R + 1) / 2;
+        split_tasks(G, G * per, [&](int g) { chain(g, j1, j2, j0); },
+                    [&](long long s) { tile((int)(s / per), s % per, j0, j1, j2, R, Lc); });
+        grid.sync();
+    }
+}
+
 using Launch = void (*)(const float*, float*, int, int, cudaStream_t);
 
 template <int RA>
@@ -778,13 +1063,38 @@ Launch variant(int panels, std::integer_sequence<int, P...>)
 
 }  // namespace
 
-// Floats of device workspace a matrix of size n needs (the wrapper
-// allocates G times this; 0 where UT stays in shared memory).
-extern "C" long long chol_tri_inv_workspace_floats(int n)
+// The grid variant's rule, measured on an H100 (PERF.md;
+// tests/torch_port_large_kernels.py times both sides): its time grows with
+// G while one block a matrix keeps about the same time up to one matrix an
+// SM, and the grid variant is the faster up to 32 matrices at n = 512 (not
+// at 48), 48 at n = 1,024 (not at 64) and 64 at n = 2,048 (not at 96).
+// So it takes batches of at most 32 at every n past 302; n <= 302 stays
+// with the earlier variants, under the yardstick there.
+static bool grid_takes(int G, int n)
 {
-    return n > kUTSmemMaxN ? 32LL * wide_ld(n) : 0;
+    return n >= kGridMinN && G <= kGridMaxG;
 }
 
+// Floats of device workspace a launch of G matrices of size n needs (0
+// where no variant that runs keeps anything there).
+extern "C" long long chol_tri_inv_workspace_floats(int G, int n)
+{
+    if (G <= 0 || n <= 0) return 0;
+    if (grid_takes(G, n)) return (long long)G * (long long)grid_ws_floats(n);
+    return n > kUTSmemMaxN ? (long long)G * 32LL * wide_ld(n) : 0;
+}
+
+// The variant chol_tri_inv_f32 runs for G matrices of size n.
+extern "C" const char* chol_tri_inv_variant(int G, int n)
+{
+    if (G <= 0 || n <= 0) return "none";
+    if (n == 1) return "1x1";
+    if (n <= kRegMaxN) return "registers";
+    if (n <= kSmemMaxN) return "wide, triangle in shared memory";
+    if (grid_takes(G, n)) return "grid";
+    return n <= kUTSmemMaxN ? "wide, triangle in device memory"
+                            : "wide, triangle and UT in device memory";
+}
 // Lets the wide variant's instances take their shared memory (above the
 // 48 KB default) on the current device; call once per device before the
 // first launch there.  Returns the CUDA error (0 on success).
@@ -799,11 +1109,33 @@ extern "C" int chol_tri_inv_prepare()
                                      (int)wide_smem_bytes(kUTSmemMaxN, false, true));
 }
 
+// The grid variant's cooperative launch: as many blocks as are co-resident
+// on the current device, and no more than the widest stage (the first
+// panel's S4 tiles and chains) has tasks.  Returns the CUDA error.
+static cudaError_t launch_grid(const float* H, float* out, float* ws, int G, int n,
+                               cudaStream_t s)
+{
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chol_tri_inv_grid_kernel,
+                                                          kGridThreads, 0);
+    if (e != cudaSuccess) return e;
+    if (per_sm <= 0) return cudaErrorLaunchOutOfResources;
+    const long long R = (n - 32 + kGT - 1) / kGT;
+    const long long want = (long long)G * (1 + R * (R + 1) / 2);
+    const long long blocks = want < (long long)per_sm * sms ? want : (long long)per_sm * sms;
+    void* args[] = {(void*)&H, (void*)&out, (void*)&ws, (void*)&G, (void*)&n};
+    return cudaLaunchCooperativeKernel((const void*)chol_tri_inv_grid_kernel, dim3((int)blocks),
+                                       dim3(kGridThreads), args, 0, s);
+}
+
 // H, out: (G, n, n) contiguous f32 on the device; ws: the workspace of
-// G chol_tri_inv_workspace_floats(n) floats (null where that is 0); stream:
-// a cudaStream_t.  Returns cudaGetLastError() after the launch (0 on
-// success), or cudaErrorInvalidValue, without launching, when a workspace
-// is needed and ws is null.
+// chol_tri_inv_workspace_floats(G, n) floats (null where that is 0);
+// stream: a cudaStream_t.  Returns the launch's error, else
+// cudaGetLastError() after it (0 on success), or cudaErrorInvalidValue,
+// without launching, when a workspace is needed and ws is null.
 extern "C" int chol_tri_inv_f32(const float* H, float* out, int G, int n, float* ws,
                                 void* stream)
 {
@@ -817,6 +1149,13 @@ extern "C" int chol_tri_inv_f32(const float* H, float* out, int G, int n, float*
     } else if (n <= kSmemMaxN) {
         chol_tri_inv_wide_kernel<true, false>
             <<<G, kWideThreads, wide_smem_bytes(n, true, true), s>>>(H, out, nullptr, n);
+    } else if (grid_takes(G, n)) {
+        if (ws == nullptr) return (int)cudaErrorInvalidValue;
+        const cudaError_t e = launch_grid(H, out, ws, G, n, s);
+        if (e != cudaSuccess) {
+            cudaGetLastError();
+            return (int)e;
+        }
     } else if (n <= kUTSmemMaxN) {
         chol_tri_inv_wide_kernel<false, false>
             <<<G, kWideThreads, wide_smem_bytes(n, false, true), s>>>(H, out, nullptr, n);

@@ -38,8 +38,10 @@ def names() -> list[str]:
 
 def _paths(name: str) -> tuple[Path, Path]:
     src = CSRC_DIR / f"{name}.cu"
+    # the shared headers (csrc/*.cuh) are part of every kernel's source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -49,6 +51,13 @@ def _nvcc() -> str:
         raise RuntimeError("no CUDA toolkit found (set CUDA_HOME) to build "
                            "the port's kernels")
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def nvcc_command(src: Path, lib: Path) -> list[str]:
+    """The nvcc command that builds ``src`` into the shared library ``lib``;
+    a copy of a kernel source outside ``csrc/`` finds the shared headers
+    there too."""
+    return [_nvcc(), *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", str(lib), str(src)]
 
 
 def build(*kernels: str) -> dict[str, str]:
@@ -69,7 +78,7 @@ def _build(kernels: tuple[str, ...]) -> dict[str, str]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         jobs[name] = (tmp, lib, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            nvcc_command(src, tmp),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
     for name, (tmp, lib, proc) in jobs.items():

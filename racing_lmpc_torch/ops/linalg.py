@@ -206,22 +206,33 @@ def _kernel_fn(device_index: int):
 
 
 @functools.cache
-def _workspace_floats(kernel: str, size: int) -> int:
-    """Floats of device workspace a matrix of ``size`` needs, as the
-    kernel's source states it (``<kernel>_workspace_floats``); 0 where the
-    kernel keeps everything on chip."""
+def _workspace_floats(kernel: str, G: int, size: int) -> int:
+    """Floats of device workspace a launch of G matrices of ``size`` needs,
+    as the kernel's source states it (``<kernel>_workspace_floats``); 0
+    where the variant that runs keeps everything on chip."""
     fn = getattr(_kernels.load(kernel), f"{kernel}_workspace_floats")
-    fn.argtypes = [ctypes.c_int]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_longlong
-    return int(fn(size))
+    return int(fn(G, size))
 
 
 def _workspace(kernel: str, G: int, size: int, like: Tensor) -> Tensor | None:
     """The kernel's workspace for G matrices, from PyTorch's allocator on
     the current stream (its out-of-memory error, if any, is PyTorch's), or
     None where it needs none."""
-    floats = _workspace_floats(kernel, size)
-    return torch.empty(G * floats, dtype=torch.float32, device=like.device) if floats else None
+    floats = _workspace_floats(kernel, G, size)
+    return torch.empty(floats, dtype=torch.float32, device=like.device) if floats else None
+
+
+def kernel_variant(kernel: str, G: int, size: int) -> str:
+    """The variant that the kernel's entry point runs for G matrices of
+    ``size`` on the card, as its source dispatches (``<kernel>_variant``):
+    ``"registers"``, ``"wide, ..."``, ``"grid"``, ...  Builds the kernel's
+    library if needed; launches nothing."""
+    fn = getattr(_kernels.load(kernel), f"{kernel}_variant")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn(G, size).decode()
 
 
 def chol_tri_inv(H: Tensor) -> Tensor:
@@ -231,14 +242,21 @@ def chol_tri_inv(H: Tensor) -> Tensor:
     positive definite gives NaN (in that matrix only).  A CPU tensor takes
     the plain version; a CUDA tensor launches the hand-written kernel
     (``csrc/chol_tri_inv.cu``) or raises — there is no fall back.
-    ``chol_tri_inv.launches`` counts the kernel launches.  The kernel takes
-    every n whose buffers fit on the card: register variants up to n = 240;
-    above, a wide variant that runs the same sweep in panels of 32 pivots
-    with a register-tiled deferred update, one block of 16 warps a matrix,
-    its triangle in shared memory up to n = 302 and in place in ``out``
-    (resident in L2) above, the panel's rows ``UT`` (32 x n) in shared
-    memory up to n = 1736 and above that in a workspace of 128 n bytes a
-    matrix, allocated here.
+    ``chol_tri_inv.launches`` counts the calls that launch the kernel: one
+    a call, whatever variant runs, so a solve's 150 stay 150.  The kernel
+    takes every n whose buffers fit on the card: register variants up to
+    n = 240; up to n = 302 a wide variant that runs the same sweep in panels
+    of 32 pivots with a register-tiled deferred update, one block of 16
+    warps a matrix, its triangle in shared memory.  Past n = 302 a batch of
+    at most 32 matrices takes the grid variant, the same stages spread over
+    the whole card by one cooperative launch with a grid-wide barrier
+    between them (its panel rows ``UT`` in a workspace of about 128 n bytes
+    a matrix, allocated here); a larger batch takes the wide variant, one
+    block a matrix, its triangle in place in ``out`` (its ``UT`` in such a
+    workspace past n = 1,736), which is faster there (the kernel source
+    states the measured rule).  A refused launch raises; nothing falls back
+    to another variant.  ``kernel_variant("chol_tri_inv", G, n)`` names the
+    variant a call runs.
 
     The kernel replaces the TPU kernel ``chol_tri_inv_fused``
     (``racing_lmpc_tpu/ops/pallas_linalg.py:312-368``).  On an H100 at the
@@ -350,13 +368,19 @@ def gj_inverse(A: Tensor, return_pivots: bool = False):
     hand-written kernel (``csrc/gj_inverse.cu``) or raises — there is no
     fall back.  The kernel takes every b whose buffers fit on the card:
     the matrix in registers up to b = 64; above, one block a matrix with the
-    whole augmented matrix in shared memory up to b = 168 and above that in
-    a workspace of about 8 b^2 bytes a matrix, allocated here (PyTorch's
-    out-of-memory error where it does not fit).  A zero pivot gives inf or
-    NaN in that matrix only.  ``gj_inverse.launches`` counts the kernel
-    launches.  On an H100 the function must move 8 b^2 bytes a matrix; the
-    bit-exact algorithm's 4 b^3 separately rounded operations set a higher
-    floor at b >= 32 (see the kernel source).
+    whole augmented matrix in shared memory up to b = 168; above that the
+    grid variant, its augmented matrix and panel buffers in a workspace of
+    about 8 b^2 bytes a matrix, allocated here (PyTorch's out-of-memory
+    error where it does not fit).  A zero pivot gives inf or
+    NaN in that matrix only.  ``gj_inverse.launches`` counts the calls
+    that launch the kernel (one a call, whatever variant runs).  Past b =
+    168 the grid variant runs: one cooperative launch spreads each matrix
+    over the whole card, the steps in panels of 32; a refused launch
+    raises, and nothing falls back to another variant
+    (``kernel_variant("gj_inverse", G, b)`` names the variant a call runs).
+    On an H100 the function must move 8 b^2 bytes a matrix; the bit-exact
+    algorithm's 4 b^3 separately rounded operations set a higher floor at
+    b >= 32 (see the kernel source).
     """
     if A.dtype != torch.float32:
         raise TypeError(f"gj_inverse takes float32, got {A.dtype}")

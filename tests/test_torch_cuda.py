@@ -62,7 +62,7 @@ def test_chol_tri_inv_kernel_matches_plain(cuda, n):
     assert rel_err(np_of(K), np_of(P)) < 1e-4
 
 
-@pytest.mark.parametrize("G", [1, 32])
+@pytest.mark.parametrize("G", [1, 4, 32, 33])
 @pytest.mark.parametrize("n", [1, 2, 28, 31, 32, 33, 40, 58, 73, 87, 96, 97, 175, 216,
                                225, 240, 241, 244, 256, 274, 275, 302, 303, 320, 336, 337,
                                400, 512, 1024, 1025, 1736, 1737, 2048])
@@ -73,9 +73,11 @@ def test_chol_tri_inv_kernel_matches_sweep_bit_for_bit(cuda, n, G):
     # last register variant (225-240: its last panel holds 2 of 4 row
     # tiles), and the wide variant: one past 240, the double-track LMPC's
     # 244 and 274-275, the last size of the triangle in shared memory (302)
-    # and the first in device memory (303), the earlier edge (336, 337),
-    # 1024 and one past it, the last size of UT in shared memory (1736) and
-    # the first in device memory (1737), and 2048
+    # and the first past it (303), the earlier edge (336, 337), 1024 and one
+    # past it, the last size of UT in shared memory (1736) and the first in
+    # device memory (1737), and 2048; past n = 302 batches of up to 32 take
+    # the grid variant (G = 1, 4, 32) and larger ones one block a matrix
+    # (G = 33)
     rng = np.random.default_rng(1000 + n)
     H = (torch.as_tensor(spd(rng, G, n), device=cuda) if n <= 1024
          else spd_on(rng, G, n, cuda))
@@ -147,17 +149,19 @@ def tie_batch(rng, size=16):
 
 @pytest.mark.parametrize("singular", [False, True])
 @pytest.mark.parametrize("b", [1, 2, 3, 15, 16, 17, 31, 32, 33, 48, 63, 64,
-                               65, 168, 169, 256])
+                               65, 168, 169, 256, 512, 1024, 1547])
 def test_gj_inverse_kernel_matches_plain(cuda, b, singular):
     # b takes in the edges of the kernel's size classes (16, 32, 64) and of
-    # its wide variants (the matrix in shared memory from 65 to 168, in
-    # device memory from 169); a singular lane must give the plain
-    # version's pivots and non-finite entries, and leave the other lanes
-    # alone
+    # its variants (the matrix in shared memory from 65 to 168, the grid
+    # variant from 169: 169, 256, 512, (4, 1024) and (4, 1547), the first
+    # size whose panel it keeps in device memory); a singular lane must give
+    # the plain version's pivots and non-finite entries, and leave the other
+    # lanes alone
     rng = np.random.default_rng(b)
-    An = (rng.normal(size=(40, b, b)) + 2 * np.sqrt(b) * np.eye(b)).astype(np.float32)
+    G, bad_lane = (40, 7) if b <= 512 else (4, 1)
+    An = (rng.normal(size=(G, b, b)) + 2 * np.sqrt(b) * np.eye(b)).astype(np.float32)
     if singular:
-        An[7] = 0.0
+        An[bad_lane] = 0.0
     A = torch.as_tensor(An, device=cuda)
     before = tl.gj_inverse.launches
     K, pk = tl.gj_inverse(A, return_pivots=True)
@@ -169,7 +173,7 @@ def test_gj_inverse_kernel_matches_plain(cuda, b, singular):
     assert torch.equal(fin, torch.isfinite(K))
     assert torch.equal(K[fin].view(torch.int32), P[fin].view(torch.int32))
     bad = ~fin.flatten(1).all(dim=1)
-    assert bad.tolist() == [singular and g == 7 for g in range(40)]
+    assert bad.tolist() == [singular and g == bad_lane for g in range(G)]
     # without pivots asked for (a null pivot pointer), the same bits
     assert torch.equal(tl.gj_inverse(A).view(torch.int32), K.view(torch.int32))
 

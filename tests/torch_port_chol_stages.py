@@ -17,6 +17,8 @@ between barriers, summed over the panels and averaged over 10 calls.  In
 the shipped kernel the barriers close: the load beside the first panel's
 S1 and S2 ("b1"), each panel's S3 ("b2"), each panel's S4 beside the next
 panel's S1 and S2 ("b3"); "end" is the last panel's rows written out.
+Sources with the grid variant run it at (1,512,512) (batches of at most 32
+past n = 302), which carries no stamps.
 Prints the card's name and power limit first and one JSON line last.
 Needs one GPU; imports no JAX.
 """
@@ -78,7 +80,7 @@ def build(sources: dict[str, Path]) -> dict[str, ctypes.CDLL]:
     for name, src in sources.items():
         lib = OUT / f"lib{name}.so"
         procs[name] = (lib, subprocess.Popen(
-            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(lib), str(src)],
+            _kernels.nvcc_command(src, lib),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
@@ -93,8 +95,14 @@ def build(sources: dict[str, Path]) -> dict[str, ctypes.CDLL]:
                 print(f"  {name} wide<{'shared' if 'ILb1' in cur else 'device memory'}>: "
                       f"{line.strip()}", flush=True)
         L = ctypes.CDLL(str(lib))
-        # sources with the UT workspace take its pointer before the stream
+        # sources with the UT workspace take its pointer before the stream;
+        # those with a variant query size it by (G, n), a launch's floats,
+        # earlier ones by n, a matrix's
         L.takes_ws = hasattr(L, "chol_tri_inv_workspace_floats")
+        if L.takes_ws:
+            L.by_batch = hasattr(L, "chol_tri_inv_variant")
+            L.chol_tri_inv_workspace_floats.argtypes = [ctypes.c_int] * (2 if L.by_batch else 1)
+            L.chol_tri_inv_workspace_floats.restype = ctypes.c_longlong
         L.chol_tri_inv_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                        ctypes.c_int] + [ctypes.c_void_p] * (2 if L.takes_ws else 1)
         L.chol_tri_inv_f32.restype = ctypes.c_int
@@ -106,9 +114,14 @@ def build(sources: dict[str, Path]) -> dict[str, ctypes.CDLL]:
 
 def call(L, H):
     out = torch.empty_like(H)
-    # the sizes here keep UT in shared memory: no workspace
-    ws = (None,) if L.takes_ws else ()
-    err = L.chol_tri_inv_f32(H.data_ptr(), out.data_ptr(), H.shape[0], H.shape[-1], *ws,
+    G, n = H.shape[0], H.shape[-1]
+    ws = ()
+    if L.takes_ws:
+        fn = L.chol_tri_inv_workspace_floats
+        floats = fn(G, n) if L.by_batch else G * fn(n)
+        buf = torch.empty(floats, device=H.device) if floats else None
+        ws = (buf.data_ptr() if buf is not None else None,)
+    err = L.chol_tri_inv_f32(H.data_ptr(), out.data_ptr(), G, n, *ws,
                              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: CUDA error {err}")
