@@ -12,6 +12,7 @@ warning sink.  ``ProfilerTrace`` is the counterpart of the reference's
 from __future__ import annotations
 
 import enum
+import json
 import os
 import threading
 import time
@@ -19,6 +20,8 @@ from collections import deque
 from pathlib import Path
 from dataclasses import dataclass
 from typing import Callable
+
+from racing_lmpc_torch.spans import take_spans
 
 
 class LogLevel(enum.IntEnum):
@@ -115,8 +118,12 @@ class ProfilerTrace:
             solve(...)   # traced
         tr.path          # the Chrome trace written on exit
 
-    Records CPU activity, and CUDA activity where a CUDA device is present;
-    writes ``<log_dir>/trace_<pid>_<ns>.json`` in the Chrome trace format
+    Records CUDA activity where a CUDA device is present (the CPU ops of a
+    solve's ~40k launches would make the profiler take most of the run),
+    else CPU activity; the program's spans (``racing_lmpc_torch.spans``),
+    which record under the profiler, are written as complete events on
+    their own "program" track, on the kernels' clock.  Writes
+    ``<log_dir>/trace_<pid>_<ns>.json`` in the Chrome trace format
     (chrome://tracing, Perfetto).  ``profiler`` holds the finished
     ``torch.profiler.profile`` for ``key_averages()``.
     """
@@ -129,16 +136,27 @@ class ProfilerTrace:
     def __enter__(self):
         import torch
         from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(ProfilerActivity.CUDA)
+        acts = ([ProfilerActivity.CUDA] if torch.cuda.is_available()
+                else [ProfilerActivity.CPU])
         self.profiler = profile(activities=acts)
+        take_spans()                    # none from before the session
         self.profiler.__enter__()
         return self
 
     def __exit__(self, *exc):
         self.profiler.__exit__(*exc)
+        spans = take_spans()
         self.log_dir.mkdir(parents=True, exist_ok=True)
         self.path = self.log_dir / f"trace_{os.getpid()}_{time.time_ns()}.json"
         self.profiler.export_chrome_trace(str(self.path))
+        trace = json.loads(self.path.read_text())
+        base = trace.get("baseTimeNanoseconds", 0)   # "ts" counts us from it
+        pid = os.getpid()
+        events = trace.setdefault("traceEvents", [])
+        events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": 0,
+                       "args": {"name": "program"}})
+        events.extend({"ph": "X", "cat": "program", "name": s.name, "pid": pid, "tid": 0,
+                       "ts": (s.t0_ns - base) / 1e3, "dur": (s.t1_ns - s.t0_ns) / 1e3,
+                       "args": {"step": s.step, **s.attrs}} for s in spans)
+        self.path.write_text(json.dumps(trace))
         return False

@@ -36,6 +36,7 @@ from racing_lmpc_torch.mpc.ipm import solve_qp_ip
 from racing_lmpc_torch.mpc.qp import QPData, QPSolution, mv, solve_qp
 from racing_lmpc_torch.ops.linalg import solve_small, tri_inv_lower
 from racing_lmpc_torch.ops.math import align_abscissa
+from racing_lmpc_torch.spans import span
 
 # fixed diagonal variable scaling (racing_mpc.cpp:36-37)
 _SCALE_X6 = np.array([2000.0, 10.0, 0.1, 80.0, 2.0, 2.0])
@@ -280,8 +281,9 @@ class RacingMPC:
         dtype, device = inp.x_ic.dtype, inp.x_ic.device
         su = self._c["su"]
 
-        As, Bs, gs = self.model.discrete_dynamics_jacobian(
-            inp.X_ref[:, :-1], inp.U_ref, inp.curvatures[:, :-1], inp.T_ref)
+        with span("mpc.linearize"):
+            As, Bs, gs = self.model.discrete_dynamics_jacobian(
+                inp.X_ref[:, :-1], inp.U_ref, inp.curvatures[:, :-1], inp.T_ref)
         if inp.dA is not None:
             # data-driven error-dynamics correction: the corrected model
             # f(x, u) + dA x + dB u + dC linearizes at the reference to
@@ -360,7 +362,8 @@ class RacingMPC:
             inp.total_length[:, None].expand(B, N))
         inp = inp._replace(X_ref=X_ref)
 
-        F, f, MU, mu0 = self._condense(inp)
+        with span("mpc.condense"):
+            F, f, MU, mu0 = self._condense(inp)
         Gm, gm = self._rate_map(inp, MU, mu0)
         nuu = L.nuu
         MUT, GmT = MU.transpose(-1, -2), Gm.transpose(-1, -2)
@@ -461,8 +464,9 @@ class RacingMPC:
         # and u_i = su * (MU v + mu0)_i (``racing_mpc.py:527-558``)
         n_nl = L.n_nl
         if n_nl:
-            g0, Gx, Gu = _nl_linearize(self.model, inp.X_ref[:, :-1], inp.U_ref,
-                                       inp.curvatures[:, :-1])   # (B, N-1, n_nl[, .])
+            with span("mpc.linearize"):
+                g0, Gx, Gu = _nl_linearize(self.model, inp.X_ref[:, :-1], inp.U_ref,
+                                           inp.curvatures[:, :-1])   # (B, N-1, n_nl[, .])
             MU_blk = MU.reshape(B, N - 1, nu, nuu)
             mu0_blk = mu0.reshape(B, N - 1, nu)
             rows = Gx @ F[:, :-1] + (Gu * su) @ MU_blk           # (B, N-1, n_nl, nuu)
@@ -499,7 +503,8 @@ class RacingMPC:
     # ------------------------------------------------------------------
     def _solve_impl(self, inp: MPCInput, z_warm: Tensor, warm_valid: Tensor
                     ) -> tuple[MPCOutput, Tensor]:
-        data, aux = self._build_qp(inp)
+        with span("mpc.build_qp"):
+            data, aux = self._build_qp(inp)
         cfg = self.config
         if cfg.qp_method == "ipm":
             # interior point restarts from the central path; the warm start
@@ -523,11 +528,12 @@ class RacingMPC:
             sol = solve_qp(data, iters=cfg.qp_iters, rho=cfg.qp_rho,
                            sigma=cfg.qp_sigma, alpha=cfg.qp_alpha,
                            do_polish=cfg.qp_polish, x0=x0)
-        out = self._extract(sol, aux)
-        # the returned warm-start vector carries SCALED CONTROLS (ubar =
-        # U/su) in the leading block, as the reference's does
-        z_ret = sol.x.clone()
-        z_ret[:, :self.layout.nuu] = (out.U_optm / self._c["su"]).flatten(1)
+        with span("mpc.extract"):
+            out = self._extract(sol, aux)
+            # the returned warm-start vector carries SCALED CONTROLS (ubar =
+            # U/su) in the leading block, as the reference's does
+            z_ret = sol.x.clone()
+            z_ret[:, :self.layout.nuu] = (out.U_optm / self._c["su"]).flatten(1)
         return out, z_ret
 
     def _extract(self, sol: QPSolution, aux) -> MPCOutput:
@@ -557,7 +563,9 @@ class RacingMPC:
         """Solve a batch of problems (leading dimension B on every input) on
         this MPC's device, each lane warm-started from ``z_warm`` (B, n)
         where ``warm_valid`` (B,) holds (the ADMM backend's start; none by
-        default).  Returns (output, warm-start vectors (B, n))."""
+        default).  Returns (output, warm-start vectors (B, n)).  Its span,
+        ``mpc.solve_batch``, is the root of the solve path's spans
+        (``racing_lmpc_torch.spans``)."""
         inp = map_input(lambda a: torch.as_tensor(a, dtype=torch.float32).to(self.device), inp)
         B = inp.x_ic.shape[0]
         if z_warm is None:
@@ -565,7 +573,8 @@ class RacingMPC:
             warm_valid = torch.zeros((B,), dtype=torch.bool, device=self.device)
         z_warm = torch.as_tensor(z_warm, dtype=torch.float32).to(self.device)
         warm_valid = torch.as_tensor(warm_valid, dtype=torch.bool).to(self.device)
-        return self._solve_impl(inp, z_warm, warm_valid)
+        with span("mpc.solve_batch"):
+            return self._solve_impl(inp, z_warm, warm_valid)
 
     def solve(self, inp: MPCInput, z_warm: Tensor | None = None
               ) -> tuple[MPCOutput, Tensor]:

@@ -1,7 +1,9 @@
 """Port tests that need an NVIDIA GPU: the hand-written kernels against
 their plain versions, the batched solve on the card against the same
 solve on the CPU, a few cycles of the bus co-simulation, the world-size-1
-NCCL sharded solve and the IPM's LU branch on the card.  They skip where ``torch.cuda.is_available()`` is false.  This file
+NCCL sharded solve, the IPM's LU branch on the card, and the program's
+spans and host-sync counter (``racing_lmpc_torch.spans``) against the
+profiler's device records and PyTorch's sync debug mode.  They skip where ``torch.cuda.is_available()`` is false.  This file
 imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -9,6 +11,8 @@ imports no JAX, so it also runs on a machine without it:
 It imports nothing from the other test modules either (a ``tests`` package
 installed elsewhere can shadow this directory there).
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -323,3 +327,53 @@ def test_ipm_lu_branch_on_card_matches_cpu(cuda):
         assert (np_of(s.rp_rel) < 1e-3).all() and (np_of(s.rd_rel) < 1e-3).all()
     assert rel_err(np_of(gpu.x), np_of(cpu.x)) < 5e-4
     assert rel_err(np_of(gpu.obj), np_of(cpu.obj)) < 1e-5
+
+
+def test_span_clock_holds_the_device_records(cuda):
+    """A span around one kernel and a ``synchronize()``, under a profiler
+    session of CUDA activity only, which turns the spans on by itself: the
+    kernel's recorded interval lies inside the span, within 20 us, so spans
+    and device records share one clock.  A session whose kernel record was
+    dropped is run again."""
+    from torch.profiler import ProfilerActivity, profile
+    from racing_lmpc_torch import spans as tm
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    assert not tm.set_spans(False)
+    tm.take_spans()
+    for _ in range(6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with tm.span("clock"):
+                torch.cuda._sleep(2_000_000)
+                torch.cuda.synchronize()
+        (s,) = tm.take_spans()
+        kernels = [e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA
+                   and not e.is_hidden_event()]
+        if kernels:
+            break
+    assert len(kernels) == 1
+    k0, k1 = kernels[0].start_ns(), kernels[0].start_ns() + kernels[0].duration_ns()
+    assert s.t0_ns - 20_000 <= k0 < k1 <= s.t1_ns + 20_000, (s.t0_ns - k0, s.t1_ns - k1)
+
+
+def test_solve_batch_syncs_are_counted(cuda):
+    """One ``solve_batch`` of the shipped BARC LMPC under PyTorch's sync
+    debug mode: every synchronizing call it reports is counted in
+    ``host_syncs`` at its site, and nothing else is."""
+    from racing_lmpc_torch.benchmarks import build_barc_lmpc, make_scenario_batch
+    from racing_lmpc_torch import spans as tm
+    _, track, _, mpc, manager = build_barc_lmpc(40, 96, 32, device=cuda)
+    inp = make_scenario_batch(mpc, track, manager, 64, seed=5, device=cuda)
+    mpc.solve_batch(inp)                          # builds and loads the kernel
+    torch.cuda.synchronize()
+    s0 = tm.host_syncs
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            mpc.solve_batch(inp)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in seen if "synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == tm.host_syncs - s0 > 0, [(w.filename, w.lineno) for w in syncs]
